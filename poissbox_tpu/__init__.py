@@ -1,6 +1,6 @@
-"""poissbox_tpu — a TPU-native structured-grid Poisson-solver framework.
+"""poissbox_tpu — a structured-grid Poisson-solver framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability surface of
+A from-scratch JAX/XLA re-design of the capability surface of
 3decomp/poissbox (reference: /root/reference): distributed structured-grid
 management, matrix-free stencil operators, Krylov + geometric-multigrid
 solution of singular (periodic) Poisson systems, a runtime options system,
@@ -26,7 +26,7 @@ Precision note: the reference runs entirely in double precision
 JAX requires `jax.config.update("jax_enable_x64", True)` *before* first use;
 call :func:`poissbox_tpu.enable_x64` early, or set JAX_ENABLE_X64=1. The
 framework itself is dtype-polymorphic — kernels follow their input dtypes —
-so single-precision / TPU-fast paths work unchanged.
+so the single-precision fast path works unchanged.
 """
 
 from poissbox_tpu.constants import enable_x64, default_real

@@ -91,7 +91,7 @@ def solve_with_checkpoints(
     """In-loop checkpointed Krylov solve: snapshot every `every` iterations.
 
     Round 4's checkpointing was between-solve only — a preemption lost the
-    whole in-flight solve (VERDICT r4 weak #6). This runs the solve as
+    whole in-flight solve. This runs the solve as
     chunks of `every` iterations through `lax.while_loop` re-entry,
     persisting (x, b, iterations, residual_norm) after each chunk; a
     killed run resumes from `path` with at most `every` wasted iterations.

@@ -133,6 +133,13 @@ class Options:
         return f"Options({self._db!r})"
 
 
+# Options that selected implementation variants which no longer exist.
+_REMOVED_OPTIONS = {
+    "mg_impl": "multigrid levels always run the XLA roll operators",
+    "mg_transfers": "multigrid transfers always run the roll form",
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class SolverOptions:
     """Typed solver configuration assembled from an options database.
@@ -167,8 +174,6 @@ class SolverOptions:
     mg_levels_ksp_rtol: float = -1.0
     mg_levels_damping: float = 1.0  # richardson damping / jacobi weight
     mg_coarse_pc_type: str = "svd"  # svd | direct
-    mg_transfers: str = "auto"      # auto | roll | matmul (MXU contraction)
-    mg_impl: str = "auto"           # auto | roll | pallas level operators
     mg_cycles: int = 1              # V-cycles per preconditioner application
     mg_cycle: str = "v"             # v | w (W revisits sub-fine levels twice)
     mg_cycle_dtype: str = ""        # "" = field dtype | bfloat16 | float32
@@ -177,6 +182,10 @@ class SolverOptions:
 
     @classmethod
     def from_options(cls, opts: Options) -> "SolverOptions":
+        for key, why in _REMOVED_OPTIONS.items():
+            if opts.has(key):
+                raise ValueError(
+                    f"option -{key} {opts.get_str(key)} was removed: {why}")
         d = {}
         for f in dataclasses.fields(cls):
             if not opts.has(f.name):

@@ -2,10 +2,10 @@
 
 The reference pins a single working precision for the whole stack
 (`pb_dp = kind(0.0d0)` — double precision, chosen to match the linked PETSc
-build; reference src/constants.f90:9-17). The TPU-native analogue is a
+build; reference src/constants.f90:9-17). The analogue here is a
 *default real dtype* that follows JAX's x64 switch: float64 when x64 is
-enabled (verification / CPU runs and f64-emulated TPU runs), float32
-otherwise (TPU fast path). All kernels are dtype-polymorphic; this module
+enabled (the reference's precision of record), float32 otherwise (the
+fast path). All kernels are dtype-polymorphic; this module
 only supplies the default used when creating fields from scratch.
 """
 
@@ -29,18 +29,3 @@ def epsilon(dtype=None) -> float:
     """Machine epsilon for `dtype` (defaults to the current default real)."""
     return float(jnp.finfo(dtype or default_real()).eps)
 
-
-def mosaic_ok(dtype) -> bool:
-    """True when `dtype` can run inside Pallas/Mosaic TPU kernels.
-
-    Mosaic has no f64 path (TPU hardware is f32/bf16; XLA *emulates* f64
-    for regular HLO but the kernel language cannot — lowering f64 trips an
-    unbounded `_convert_helper` recursion). Dispatch sites consult this so
-    x64-mode runs (the reference's `pb_dp` precision of record, reference
-    src/constants.f90:15) take the XLA-emulated paths on TPU instead of
-    crashing; f32/bf16 keep the fast Pallas kernels. Off-TPU (Pallas
-    interpret mode) every dtype is fine.
-    """
-    if jnp.dtype(dtype).itemsize <= 4:
-        return True
-    return jax.default_backend() != "tpu"

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import sys
 import time
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -37,27 +38,35 @@ from poissbox_tpu.ops.stencil import (
 from poissbox_tpu.solvers.ksp import solve
 
 
-def run(opts: Options) -> float:
-    """Run the demo; returns the final relative true residual
-    ||Ax - b|| / ||b||."""
+class DemoReport(NamedTuple):
+    rel_residual: float   # final relative true residual ||Ax - b|| / ||b||
+    iterations: int
+    reason: int           # PETSc-style converged reason (> 0 converged)
+
+
+def run(opts: Options) -> DemoReport:
+    """Run the demo; returns the final relative true residual, the
+    iteration count and the converged reason."""
     n = opts.get_int("n", 64)
     platform = opts.get_str("platform", "")
     if platform:  # e.g. `-platform cpu` / `--platform cpu`
-        try:
-            jax.config.update("jax_platforms", platform)
-            if platform == "cpu":
-                jax.config.update("jax_num_cpu_devices",
-                                  opts.get_int("devices", 8))
-        except RuntimeError:
-            pass  # backend already initialized
+        jax.config.update("jax_platforms", platform)
+        if platform == "cpu":
+            # raises RuntimeError once the backends are initialized
+            jax.config.update("jax_num_cpu_devices",
+                              opts.get_int("devices", 8))
+        # a request that cannot be honoured must not run the demo on
+        # another device
+        got = jax.devices()[0].platform
+        if got != {"cuda": "gpu", "rocm": "gpu"}.get(platform, platform):
+            raise RuntimeError(
+                f"-platform {platform} requested, but JAX runs on {got}")
     # The reference's numeric policy is double precision everywhere
     # (pb_dp = kind(0.0d0), reference src/constants.f90:15) — the demo
-    # honors it on every backend: x64 is the default, on TPU via XLA's
-    # f64 emulation (the Pallas kernels are dtype-gated to the XLA paths
-    # there, see constants.mosaic_ok). `-x64 0` opts into the fast f32
-    # path; an f32-unreachable rtol is then CLAMPED to the dtype-reachable
-    # value with an explicit notice instead of silently spinning to
-    # DIVERGED_MAX_IT.
+    # honors it on every backend: x64 is the default. `-x64 0` opts into
+    # the fast f32 path; an f32-unreachable rtol is then CLAMPED to the
+    # dtype-reachable value with an explicit notice instead of silently
+    # spinning to DIVERGED_MAX_IT.
     use_x64 = opts.get_bool("x64", True)
     if use_x64 and not jax.config.jax_enable_x64:
         jax.config.update("jax_enable_x64", True)
@@ -122,11 +131,6 @@ def run(opts: Options) -> float:
     views = {"pointwise": make_laplacian_operator(grid, impl="pointwise"),
              "roll": make_laplacian_operator(grid, impl="roll"),
              "assembled": assemble_laplacian(grid.n, grid.deltas, b.dtype)}
-    from poissbox_tpu.constants import mosaic_ok
-    if (devices[0].platform == "tpu" and mosaic_ok(b.dtype)
-            and (grid.mesh is None or grid.mesh.size == 1)):
-        # Pallas view only for Mosaic-lowerable dtypes (f64 has none)
-        views["pallas"] = make_laplacian_operator(grid, impl="pallas")
     ax_scale = float(jnp.linalg.norm(Ax.ravel()))
     for name, Ai in views.items():
         d = float(jnp.linalg.norm((Ax - Ai(x_exact)).ravel()))
@@ -168,11 +172,14 @@ def run(opts: Options) -> float:
     else:
         for k in opts.unused_keys():
             print(f"WARNING: option -{k} was set but never used")
-    return true_res / b_norm
+    return DemoReport(true_res / b_norm, int(res.iterations), int(res.reason))
 
 
 def main(argv=None) -> int:
+    from poissbox_tpu.utils.compile_cache import setup_compile_cache
+
     opts = Options(sys.argv[1:] if argv is None else argv)
+    setup_compile_cache()
     run(opts)
     return 0
 

@@ -56,28 +56,12 @@ class LinearOperator:
     diagonal: Optional[Callable[[], Array]] = None
     nullspace: Optional[Callable[[Array], Array]] = None
     symmetric: bool = True
-    # optional fused matvec + dot: x -> (A x, <x, A x>); lets CG evaluate
-    # p'Ap without re-reading p and Ap from HBM (Pallas kernels provide it)
+    # optional matvec + dot: x -> (A x, <x, A x>); the distributed
+    # operator computes the dot inside its shard_map pass (psum'd partials)
     apply_dot: Optional[Callable[[Array], tuple]] = None
-    # fields live on ONE device (no GSPMD sharding): solvers may run
-    # element-wise Pallas kernels (e.g. the fused CG x/r update) on them —
-    # pallas_call cannot be auto-partitioned, so sharded operators must
-    # leave this False
-    local_pallas: bool = False
     # optional exact direct solve x = A^+ b (shift-invariant periodic
     # operators are FFT-diagonalizable); consumed by ksp_type="fft"
     direct_solve: Optional[Callable[[Array], Array]] = None
-    # optional fused CG iterate update (alpha, x, p, r, Ap) ->
-    # (x + alpha p, r - alpha Ap, ||r'||^2, sum(r')): one memory pass over
-    # the five fields with the next iteration's reductions computed
-    # in-kernel. Single-device operators bind the Pallas kernel directly;
-    # distributed operators bind its shard_map form with psum'd partials.
-    fused_update: Optional[Callable] = None
-    # optional fused CG search-direction update + matvec + dot:
-    # (v, p_old, beta, zshift) -> (p', A p', <p', A p'>) with
-    # p' = (v - zshift) + beta p_old formed inside the stencil kernel —
-    # kills the separate p-update memory pass (single-device Pallas only)
-    pupdate_apply_dot: Optional[Callable] = None
 
     def __call__(self, x: Array) -> Array:
         return self.apply(x)

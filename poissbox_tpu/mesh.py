@@ -1,4 +1,4 @@
-"""Structured-grid management over a TPU device mesh — the DMDA replacement.
+"""Structured-grid management over a device mesh — the DMDA replacement.
 
 The reference creates a periodic 3-D DMDA and lets PETSc pick the process
 decomposition and each rank's owned box (`DMDACreate3d` with PETSC_DECIDE,
@@ -8,9 +8,9 @@ global structured grid (shape, extents, spacing, periodicity) to a
 `NamedSharding`, XLA owns the box per device, and the decomposition choice
 (`parallel.decomp.decompose_3d`) plays PETSC_DECIDE.
 
-Axis convention: array dims are (x, y, z) with z innermost — z is the TPU
-lane axis, so keep it unsharded and contiguous where possible (the
-decomposition heuristic prefers splitting x, then y).
+Axis convention: array dims are (x, y, z) with z innermost (contiguous),
+so keep it unsharded where possible (the decomposition heuristic prefers
+splitting x, then y).
 """
 
 from __future__ import annotations
@@ -32,10 +32,10 @@ def init_distributed(coordinator_address: Optional[str] = None,
     """Initialize the multi-host runtime — the MPI_Init analogue
     (reference src/example.f90:43-44).
 
-    On single-process runs this is a no-op; on multi-host TPU slices it
-    wires `jax.distributed` (auto-detecting cluster parameters on TPU pods
-    when no arguments are given) so `jax.devices()` spans all hosts and
-    collectives ride ICI/DCN.
+    On single-process runs this is a no-op; on multi-host jobs it wires
+    `jax.distributed` (auto-detecting cluster parameters where the
+    platform provides them, when no arguments are given) so
+    `jax.devices()` spans all hosts.
     """
     # NB: do not touch jax.process_count()/jax.devices() here — that would
     # initialize the single-process backend and make distributed init
@@ -132,7 +132,7 @@ class Grid3D:
         """True when some sharded axis does not divide evenly — fields then
         use the padded layout of `parallel.uneven` (PETSc's DMDA handles
         any rank count, reference src/poissbox.f90:191-200; this is the
-        TPU-native equivalent)."""
+        equivalent here)."""
         return any(nd % p for nd, p in zip(self.n, self.pgrid))
 
     @property

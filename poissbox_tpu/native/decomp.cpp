@@ -2,7 +2,7 @@
 //
 // The reference delegates process-grid choice and owned-box queries to
 // PETSc's native DMDA (reference src/poissbox.f90:191-200, DMDAGetCorners
-// at :107). This is the equivalent host-side native component for the TPU
+// at :107). This is the equivalent host-side native component for this
 // framework: given a device count and global grid it picks the
 // communication-minimizing process grid, computes every device's owned box,
 // and sizes the halo-exchange messages. Exposed through a plain C ABI for
@@ -18,7 +18,7 @@
 extern "C" {
 
 // Choose (px, py, pz) for ndev devices over grid (nx, ny, nz).
-// Objective (mirrors DMDA's heuristic + the TPU lane-axis preference):
+// Objective (mirrors DMDA's heuristic + keeping the innermost axis whole):
 //   1. prefer decompositions dividing the grid exactly (XLA shards
 //      evenly-divisible axes without padding),
 //   2. minimize halo surface 2*(sx*sy*[pz>1] + sy*sz*[px>1] + sz*sx*[py>1]),

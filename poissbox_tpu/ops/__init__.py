@@ -1,8 +1,7 @@
 """Numerical operator kernels: stencils, tridiagonal solves, compact schemes.
 
-Pure-XLA formulations (stencil, tridiag, compact, assemble) plus the
-hand-tiled Pallas kernels (stencil_pallas, tridiag_pallas) and the
-distributed pencil-transposed compact operators (compact_dist).
+Pure-XLA formulations (stencil, tridiag, compact, compact_pcr, assemble)
+and the distributed pencil-transposed compact operators (compact_dist).
 """
 
 from poissbox_tpu.ops import (

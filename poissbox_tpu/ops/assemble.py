@@ -5,14 +5,15 @@ The reference assembles the 7-point Laplacian into a distributed AIJ matrix
 (per-cell `MatSetValuesStencil` of the flattened 3x3x3 box, reference
 src/coefficients.f90:50-113) and keeps it alongside the matrix-free shell
 (`KSPSetOperators(ksp, A, P)` applies A, preconditions from P, reference
-src/poissbox.f90:294). On TPU an explicit sparse AIJ matrix is the wrong
-data structure — SpMV via gather/scatter wastes the VPU — so the assembled
+src/poissbox.f90:294). For a structured grid an explicit sparse AIJ matrix
+is the wrong data structure — SpMV via gather/scatter wastes bandwidth on
+indices — so the assembled
 view is a :class:`StencilMatrix`: the (3,3,3) coefficient box (optionally
 spatially varying) stored explicitly, applied as a dense shift-and-scale
 contraction, convertible to a dense matrix for coarse/direct solves. This
 preserves every capability the assembled path serves in the reference
 (feeding the preconditioner setup, operator introspection, A-vs-P
-cross-checks) in TPU-native form.
+cross-checks) in array form.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Finite-difference coefficient sets.
 
-TPU-native re-design of the reference's coefficients module
+A re-design of the reference's coefficients module
 (reference src/coefficients.f90:22-48) plus the compact-scheme constants
 embedded in reference src/compact_schemes.f90:188-193 and 303-308, hoisted
 here so operators, tests and the multigrid hierarchy share one source of

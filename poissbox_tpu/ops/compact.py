@@ -1,6 +1,6 @@
 """6th-order staggered compact finite-difference operators.
 
-TPU-native re-design of the reference's compact-scheme stack (reference
+A re-design of the reference's compact-scheme stack (reference
 src/compact_schemes.f90). Semantics preserved exactly — periodic, staggered
 cell<->vertex operators where a derivative/interpolation couples each grid
 line through a constant-coefficient periodic tridiagonal system:
@@ -10,10 +10,17 @@ line through a constant-coefficient periodic tridiagonal system:
 The reference evaluates the n^2 pencils of each sweep with serial 1-D calls
 (reference src/compact_schemes.f90:60-66, 70-76, 80-85); here each 1-D
 operator acts along `axis` of the full 3-D array with the other axes as the
-vectorized batch, and the tridiagonal solve is the batched parallel-scan
-solver from :mod:`poissbox_tpu.ops.tridiag`. The factorization of the fixed
-(alpha, 1, alpha) periodic Toeplitz system is computed once per
-(n, scheme, dtype) and folded into the compiled kernel as constants.
+vectorized batch. The line solve is one of:
+
+  * 'pcr' (default): scan-free circulant cyclic reduction
+    (:mod:`poissbox_tpu.ops.compact_pcr`) — a few rolls and FMAs per
+    step, fused by XLA, no axis moves;
+  * 'pscan' / 'seq': the batched Thomas solvers of
+    :mod:`poissbox_tpu.ops.tridiag` (log-depth associative scan, or a
+    sequential scan), kept as the reference the PCR path is tested
+    against. Their factorization of the fixed (alpha, 1, alpha) periodic
+    Toeplitz system is computed once per (n, scheme, dtype) and folded
+    into the compiled program as constants.
 
 Sweep orders follow the reference: `grad` runs Z->Y->X
 (cell->face->edge->vertex, src/compact_schemes.f90:42-88), `div` runs
@@ -28,6 +35,7 @@ from typing import Sequence
 import jax
 import jax.numpy as jnp
 
+from poissbox_tpu.ops import compact_pcr
 from poissbox_tpu.ops.coefficients import (
     CompactCoeffs,
     compact_grad_coeffs,
@@ -36,6 +44,11 @@ from poissbox_tpu.ops.coefficients import (
 from poissbox_tpu.ops.tridiag import TridiagFactor
 
 Array = jax.Array
+
+# Line-solve method behind method="auto" (PERF.md, "Bring-up findings",
+# times compact.lapl with each at 512^3).
+DEFAULT_METHOD = "pcr"
+METHODS = ("pcr", "pscan", "seq")
 
 
 # ---------------------------------------------------------------------------
@@ -80,18 +93,13 @@ def _toeplitz_factor(n: int, alpha: float, dtype_name: str, method: str):
     ANY ambient trace — `ensure_compile_time_eval` alone cannot escape an
     eager `shard_map` body trace (its constants stay ShardMapTracers, which
     would poison the cache). Under `jit` the factorization is baked into
-    the executable as constants rather than recomputed per apply. method
-    'pallas' returns the VMEM-resident Thomas kernel (ops.tridiag_pallas);
-    'pscan'/'seq' the XLA solvers.
+    the executable as constants rather than recomputed per apply.
     """
     def build():
         dt = jnp.dtype(dtype_name)
         a = jnp.full((n,), alpha, dt)
         b = jnp.ones((n,), dt)
         c = jnp.full((n,), alpha, dt)
-        if method == "pallas":
-            from poissbox_tpu.ops.tridiag_pallas import PallasTridiagFactor
-            return PallasTridiagFactor(a, b, c, periodic=True)
         return TridiagFactor(a, b, c, periodic=True, method=method)
 
     from concurrent.futures import ThreadPoolExecutor
@@ -106,43 +114,18 @@ def _toeplitz_factor(n: int, alpha: float, dtype_name: str, method: str):
     return fac
 
 
-def _default_method(dtype=None) -> str:
-    if dtype is not None:
-        from poissbox_tpu.constants import mosaic_ok
-        if not mosaic_ok(dtype):
-            return "pscan"  # f64 (x64 mode): Mosaic has no f64 lowering
-    return "pallas" if jax.devices()[0].platform == "tpu" else "pscan"
-
-
 def _apply_compact(f: Array, coeffs: CompactCoeffs, stagger: int, axis: int,
                    method: str = "auto") -> Array:
     n = f.shape[axis]
     if method == "auto":
-        method = _default_method(f.dtype)
-    if method == "pallas" and f.size // n < 1024:
-        method = "pscan"  # batch too small to feed the kernel's tiles
-    if method == "pallas" and f.ndim == 3:
-        # axis-native scan-free path: PCR along the solve axis, no axis
-        # moves (see ops.compact_pcr)
-        from poissbox_tpu.ops import compact_pcr
-        if compact_pcr.available_1d(f.shape, axis, f.dtype):
-            rt = compact_pcr._dtype_rtol(f.dtype)
-            spec = compact_pcr._spec(coeffs, coeffs.opsign, stagger, n, rt)
-            return compact_pcr.op_1d(f, spec, axis)
-    if method == "pallas":
-        # lines-major layout; the RHS evaluation fuses into the Thomas
-        # kernel (2 HBM passes total) when the field is 3-D
-        fm = f if axis % f.ndim == 0 else jnp.moveaxis(f, axis, 0)
-        fac = _toeplitz_factor(n, float(coeffs.alpha),
-                               jnp.dtype(f.dtype).name, method)
-        if fm.ndim == 3:
-            shift = 0 if stagger == -1 else 1
-            out = fac.solve_compact(fm, coeffs.a, coeffs.b, coeffs.opsign,
-                                    shift, axis=0)
-        else:
-            rhs = compact_rhs(fm, coeffs.a, coeffs.b, coeffs.opsign, stagger, 0)
-            out = fac.solve(rhs, axis=0)
-        return out if axis % f.ndim == 0 else jnp.moveaxis(out, 0, axis)
+        method = DEFAULT_METHOD
+    if method == "pcr":
+        spec = compact_pcr._spec(coeffs, coeffs.opsign, stagger, n,
+                                 compact_pcr._dtype_rtol(f.dtype))
+        return compact_pcr.pcr_op(f, spec, axis)
+    if method not in METHODS:
+        raise ValueError(f"unknown compact line-solve method {method!r} "
+                         f"(expected auto|{'|'.join(METHODS)})")
     rhs = compact_rhs(f, coeffs.a, coeffs.b, coeffs.opsign, stagger, axis)
     fac = _toeplitz_factor(n, float(coeffs.alpha), jnp.dtype(f.dtype).name, method)
     return fac.solve(rhs, axis=axis)
@@ -182,84 +165,6 @@ def interp_1d_div(f: Array, axis: int = -1, method: str = "auto") -> Array:
 # ---------------------------------------------------------------------------
 # 3-D operators
 # ---------------------------------------------------------------------------
-#
-# Layout-cycled evaluation: on TPU the Pallas Thomas kernel solves along
-# axis 0, so each sweep runs in the layout that makes its axis major, and
-# the layouts cycle (a,b,c) -> (c,a,b) so one transpose feeds each sweep
-# and the final sweep lands directly in the output layout — 6 transposes
-# per 3-D operator instead of the 10 implied by per-op axis moves.
-
-def _cyc(v: Array) -> Array:
-    """(a, b, c) -> (c, a, b): bring the next sweep axis to the front."""
-    return jnp.moveaxis(v, 2, 0)
-
-
-def _use_layout_cycling(method: str) -> bool:
-    return (method == "pallas"
-            or (method == "auto" and _default_method() == "pallas"))
-
-
-# -- fused multi-operator kernels (TPU) --------------------------------------
-#
-# The sweeps of grad/div/lapl repeatedly read the same line block: grad's Z
-# sweep evaluates interp_1d AND grad_1d of one field, the Laplacian's X
-# sweeps compose two operators along the same axis, and div's final Z sweep
-# is op(f1 + f2) + op'(f3). ops.tridiag_pallas provides fused kernels for
-# each shape (compact_dual / compact_chain / compact_sum) that keep the
-# lines VMEM-resident and cut the HBM passes ~in half.
-
-def _op(coeffs: CompactCoeffs, stagger: int):
-    """(factor-key, rhs-spec) of one staggered compact operator."""
-    shift = 0 if stagger == -1 else 1
-    return float(coeffs.alpha), (coeffs.a, coeffs.b, coeffs.opsign, shift)
-
-
-def _pfac(n: int, alpha: float, dtype):
-    return _toeplitz_factor(n, alpha, jnp.dtype(dtype).name, "pallas")
-
-
-def _fused_ok(f: Array, method: str) -> bool:
-    from poissbox_tpu.constants import mosaic_ok
-    return (_use_layout_cycling(method) and f.ndim == 3
-            and mosaic_ok(f.dtype)        # fused kernels are Pallas-only
-            and f.size // f.shape[0] >= 1024)
-
-
-def _pcr_ok(shape, dtype, method: str) -> bool:
-    """Prefer the scan-free circulant-PCR kernels (ops.compact_pcr) on TPU
-    for power-of-two grids: ~2.5x fewer HBM passes and no serial
-    recurrence (the Thomas kernels are latency-bound, see compact_pcr
-    docstring)."""
-    from poissbox_tpu.ops import compact_pcr
-    return len(shape) == 3 and compact_pcr.available(shape, dtype, method)
-
-
-def _dual(f: Array, op1, op2):
-    """(op1(f), op2(f)) along axis 0, one fused kernel."""
-    from poissbox_tpu.ops.tridiag_pallas import compact_dual
-    (al1, s1), (al2, s2) = op1, op2
-    n = f.shape[0]
-    return compact_dual(f, _pfac(n, al1, f.dtype), s1,
-                        _pfac(n, al2, f.dtype), s2)
-
-
-def _chain(f: Array, op1, op2):
-    """op2(op1(f)) along axis 0, one fused kernel."""
-    from poissbox_tpu.ops.tridiag_pallas import compact_chain
-    (al1, s1), (al2, s2) = op1, op2
-    n = f.shape[0]
-    return compact_chain(f, _pfac(n, al1, f.dtype), s1,
-                         _pfac(n, al2, f.dtype), s2)
-
-
-def _sum2(fa: Array, fb: Array, f3: Array, op1, op2):
-    """op1(fa + fb) + op2(f3) along axis 0, one fused kernel."""
-    from poissbox_tpu.ops.tridiag_pallas import compact_sum
-    (al1, s1), (al2, s2) = op1, op2
-    n = fa.shape[0]
-    return compact_sum(fa, fb, f3, _pfac(n, al1, fa.dtype), s1,
-                       _pfac(n, al2, fa.dtype), s2)
-
 
 def grad(f: Array, deltas: Sequence[float], method: str = "auto") -> Array:
     """Staggered gradient tensor of a cell-centered field: (nx, ny, nz, 3).
@@ -269,35 +174,6 @@ def grad(f: Array, deltas: Sequence[float], method: str = "auto") -> Array:
     src/compact_schemes.f90:42-88).
     """
     dx, dy, dz = deltas
-    if _pcr_ok(f.shape, f.dtype, method):
-        from poissbox_tpu.ops import compact_pcr
-        return compact_pcr.grad(f, tuple(float(d) for d in deltas))
-    if _fused_ok(f, method):
-        # dual kernels: interp+grad of one resident read per shared sweep
-        op_i = _op(compact_interp_coeffs(), -1)
-        fz = _cyc(f)                                   # (z, x, y)
-        fz_i, fz_d = _dual(fz, op_i, _op(compact_grad_coeffs(dz), -1))
-        yi, yd = _cyc(fz_i), _cyc(fz_d)                # (y, z, x)
-        c1, c2 = _dual(yi, op_i, _op(compact_grad_coeffs(dy), -1))
-        c3 = interp_1d(yd, axis=0, method=method)
-        x1, x2, x3 = _cyc(c1), _cyc(c2), _cyc(c3)      # (x, y, z)
-        g1 = grad_1d(x1, dx, axis=0, method=method)
-        g2 = interp_1d(x2, axis=0, method=method)
-        g3 = interp_1d(x3, axis=0, method=method)
-        return jnp.stack([g1, g2, g3], axis=-1)
-    if _use_layout_cycling(method) and f.ndim == 3:
-        fz = _cyc(f)                                   # (z, x, y)
-        fz_i = interp_1d(fz, axis=0, method=method)
-        fz_d = grad_1d(fz, dz, axis=0, method=method)
-        yi, yd = _cyc(fz_i), _cyc(fz_d)                # (y, z, x)
-        c1 = interp_1d(yi, axis=0, method=method)
-        c2 = grad_1d(yi, dy, axis=0, method=method)
-        c3 = interp_1d(yd, axis=0, method=method)
-        x1, x2, x3 = _cyc(c1), _cyc(c2), _cyc(c3)      # (x, y, z)
-        g1 = grad_1d(x1, dx, axis=0, method=method)
-        g2 = interp_1d(x2, axis=0, method=method)
-        g3 = interp_1d(x3, axis=0, method=method)
-        return jnp.stack([g1, g2, g3], axis=-1)
     # Z sweep: components 1 and 2 get interpolated (shared), 3 differenced.
     fz_i = interp_1d(f, axis=2, method=method)
     fz_d = grad_1d(f, dz, axis=2, method=method)
@@ -319,31 +195,6 @@ def div(F: Array, deltas: Sequence[float], method: str = "auto") -> Array:
     sweep and interpolating the rest (reference src/compact_schemes.f90:207-257).
     """
     dx, dy, dz = deltas
-    if F.ndim == 4 and _pcr_ok(F.shape[:3], F.dtype, method):
-        from poissbox_tpu.ops import compact_pcr
-        return compact_pcr.div(F, tuple(float(d) for d in deltas))
-    if _use_layout_cycling(method) and F.ndim == 4:
-        # X sweep in the natural (x, y, z) layout.
-        e1 = div_1d(F[..., 0], dx, axis=0, method=method)
-        e2 = interp_1d_div(F[..., 1], axis=0, method=method)
-        e3 = interp_1d_div(F[..., 2], axis=0, method=method)
-        # Y sweep in (y, x, z).
-        y1, y2, y3 = (jnp.moveaxis(e, 1, 0) for e in (e1, e2, e3))
-        f1 = interp_1d_div(y1, axis=0, method=method)
-        f2 = div_1d(y2, dy, axis=0, method=method)
-        f3 = interp_1d_div(y3, axis=0, method=method)
-        # Z sweep in (z, y, x); result transposed back to (x, y, z).
-        if _fused_ok(f1, method):
-            # one kernel: interp'(f1 + f2) + div'(f3), summed RHS by
-            # linearity (reference src/compact_schemes.f90:247-252)
-            out = _sum2(_cyc(f1), _cyc(f2), _cyc(f3),
-                        _op(compact_interp_coeffs(), +1),
-                        _op(compact_grad_coeffs(dz), +1))
-        else:
-            z12, z3 = _cyc(f1 + f2), _cyc(f3)
-            out = interp_1d_div(z12, axis=0, method=method) \
-                + div_1d(z3, dz, axis=0, method=method)
-        return jnp.transpose(out, (2, 1, 0))
     # X sweep (vertex->edge).
     e1 = div_1d(F[..., 0], dx, axis=0, method=method)
     e2 = interp_1d_div(F[..., 1], axis=0, method=method)
@@ -360,13 +211,6 @@ def div(F: Array, deltas: Sequence[float], method: str = "auto") -> Array:
 def interp(f: Array, stagger: int = -1, method: str = "auto") -> Array:
     """Tri-directional interpolation, Z->Y->X (reference
     src/compact_schemes.f90:93-142)."""
-    if _pcr_ok(f.shape, f.dtype, method):
-        from poissbox_tpu.ops import compact_pcr
-        return compact_pcr.interp(f, stagger=stagger)
-    if _use_layout_cycling(method) and f.ndim == 3:
-        out = interp_1d(_cyc(f), stagger=stagger, axis=0, method=method)
-        out = interp_1d(_cyc(out), stagger=stagger, axis=0, method=method)
-        return interp_1d(_cyc(out), stagger=stagger, axis=0, method=method)
     out = interp_1d(f, stagger=stagger, axis=2, method=method)
     out = interp_1d(out, stagger=stagger, axis=1, method=method)
     return interp_1d(out, stagger=stagger, axis=0, method=method)
@@ -381,48 +225,8 @@ def interp_div(f: Array, method: str = "auto") -> Array:
 def lapl(f: Array, deltas: Sequence[float], method: str = "auto") -> Array:
     """6th-order compact Laplacian: div(grad(f)) via staggered
     cell->vertex->cell evaluation (reference src/compact_schemes.f90:17-37).
-
-    On TPU this runs as a dedicated fused pipeline rather than literal
-    div(grad(...)): the per-component 1-D operator chains are identical to
-    the reference's sweep composition, but shared-input sweeps run as
-    dual-output kernels, the grad_x->div_x (and interp->interp')
-    same-axis pairs run as chained kernels with the intermediate line in
-    VMEM, and the final Z sweep is the summed-RHS kernel — the gradient
-    tensor is never materialized in HBM.
     """
-    if _pcr_ok(f.shape, f.dtype, method):
-        from poissbox_tpu.ops import compact_pcr
-        return compact_pcr.lapl(f, tuple(float(d) for d in deltas))
-    if not _fused_ok(f, method):
-        return div(grad(f, deltas, method), deltas, method)
-    dx, dy, dz = deltas
-    op_i = _op(compact_interp_coeffs(), -1)     # interp, cell->vertex
-    op_ip = _op(compact_interp_coeffs(), +1)    # interp', vertex->cell
-    gz, gy, gx = (_op(compact_grad_coeffs(d), -1) for d in (dz, dy, dx))
-    dvz, dvx = (_op(compact_grad_coeffs(d), +1) for d in (dz, dx))
-
-    # grad Z sweep in (z, x, y): interp + grad of one resident read
-    fz = _cyc(f)
-    fz_i, fz_d = _dual(fz, op_i, gz)
-    # grad Y sweep in (y, z, x)
-    yi, yd = _cyc(fz_i), _cyc(fz_d)
-    c1, c2 = _dual(yi, op_i, gy)
-    c3 = interp_1d(yd, axis=0, method=method)
-    # X sweeps fused across grad and div: comp1 grad_x -> div'_x,
-    # comps 2,3 interp_x -> interp'_x (reference composes the same pairs
-    # through the stacked gradient tensor, src/compact_schemes.f90:32-33)
-    x1, x2, x3 = _cyc(c1), _cyc(c2), _cyc(c3)   # (x, y, z)
-    e1 = _chain(x1, gx, dvx)
-    e2 = _chain(x2, op_i, op_ip)
-    e3 = _chain(x3, op_i, op_ip)
-    # div Y sweep in (y, x, z)
-    y1, y2, y3 = (jnp.moveaxis(e, 1, 0) for e in (e1, e2, e3))
-    f1 = interp_1d(y1, stagger=+1, axis=0, method=method)
-    f2 = grad_1d(y2, dy, stagger=+1, axis=0, method=method)
-    f3 = interp_1d(y3, stagger=+1, axis=0, method=method)
-    # div Z sweep in (z, y, x): interp'(f1 + f2) + div'(f3), one kernel
-    out = _sum2(_cyc(f1), _cyc(f2), _cyc(f3), op_ip, dvz)
-    return jnp.transpose(out, (2, 1, 0))
+    return div(grad(f, deltas, method), deltas, method)
 
 
 def make_compact_laplacian_operator(grid):

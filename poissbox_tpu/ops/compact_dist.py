@@ -54,10 +54,9 @@ def _local_1d(fn, grid, local_dim: int):
     """Run a line operator on each device's pencil block via shard_map.
 
     After `to_pencil` the solve axis is unsharded, so the operator —
-    periodic RHS rolls plus the (Pallas, on TPU) tridiagonal solve — is
-    purely local to each shard; shard_map makes that explicit, which both
-    avoids any GSPMD re-gather and lets the per-device Pallas kernels run
-    on real multi-chip meshes (pallas_call cannot be auto-partitioned).
+    periodic RHS rolls plus the line solve — is purely local to each
+    shard; shard_map makes that explicit, which avoids any GSPMD
+    re-gather.
     """
     if grid.mesh is None:
         return fn

@@ -1,9 +1,9 @@
 """Matrix-free 7-point Laplacian stencil operators.
 
-TPU-native replacement for the reference's matrix-free operator stack:
+The replacement for the reference's matrix-free operator stack:
 MatShell + MATOP_MULT callback + `compute_lapl_pointwise`'s halo exchange
-and triple loop (reference src/poissbox.f90:24-150). Three equivalent
-implementations, cross-checked by tests exactly as the reference demo
+and triple loop (reference src/poissbox.f90:24-150). Two equivalent
+formulations, cross-checked by tests exactly as the reference demo
 cross-checks matvec vs pointwise application (reference src/example.f90:201-233):
 
   * :func:`apply_laplacian` — shifted-adds on the global (possibly sharded)
@@ -13,8 +13,9 @@ cross-checks matvec vs pointwise application (reference src/example.f90:201-233)
   * :func:`apply_laplacian_pointwise` — an independent formulation via the
     full 3x3x3 coefficient box (dot with `lapl_star_coeffs`), mirroring
     `evaluate_laplacian_pointwise` (reference src/poissbox.f90:128-148).
-  * a Pallas kernel in :mod:`poissbox_tpu.ops.stencil_pallas` (explicitly
-    tiled, fused halo) selected via config where profitable.
+
+Multi-device meshes run the correction-form shard_map operator of
+:mod:`poissbox_tpu.parallel.dist_stencil` around the roll formulation.
 
 All are periodic; fields are cell-centered on a uniform grid.
 """
@@ -52,7 +53,7 @@ def apply_laplacian_pointwise(u: jax.Array, deltas: Sequence[float]) -> jax.Arra
     """Independent evaluation through the full 3x3x3 star box.
 
     Gathers every (di, dj, dk) in [-1, 0, 1]^3 neighborhood by periodic roll
-    and contracts with `lapl_star_coeffs` — the TPU analogue of the
+    and contracts with `lapl_star_coeffs` — the array form of the
     reference's per-point 27-wide dot (reference src/poissbox.f90:112-148),
     vectorized over the whole grid instead of looping.
     """
@@ -69,20 +70,11 @@ def apply_laplacian_pointwise(u: jax.Array, deltas: Sequence[float]) -> jax.Arra
     return out
 
 
-def default_impl(shape, mesh=None, dtype=None) -> str:
-    """Pick the stencil implementation: 'dist' (shard_map + ppermute halos,
-    per-device Pallas/roll bulk kernel) on a multi-device mesh, the Pallas
-    kernel on a single TPU device with large-enough planes, the XLA roll
-    formulation otherwise. f64 fields (x64 mode — the reference's pb_dp
-    precision of record) never take Pallas: Mosaic has no f64 lowering, so
-    they run on XLA's emulated-f64 roll path."""
-    from poissbox_tpu.constants import default_real, mosaic_ok
-
-    if mesh is not None and mesh.size > 1:
-        return "dist"
-    on_tpu = jax.devices()[0].platform == "tpu"
-    ok = mosaic_ok(dtype if dtype is not None else default_real())
-    return "pallas" if (on_tpu and ok and min(shape) >= 16) else "roll"
+def default_impl(mesh=None) -> str:
+    """Pick the stencil implementation: 'dist' (shard_map + ppermute halo
+    corrections around the roll bulk pass) on a multi-device mesh, the XLA
+    roll formulation otherwise."""
+    return "dist" if mesh is not None and mesh.size > 1 else "roll"
 
 
 def make_laplacian_operator(grid, impl: str = "auto"):
@@ -91,48 +83,23 @@ def make_laplacian_operator(grid, impl: str = "auto"):
     The assembled-P / matrix-free-A pair of the reference collapses to one
     operator object exposing apply + diagonal + nullspace — what KSP and the
     MG preconditioner actually consume (reference src/poissbox.f90:206-267).
-    `impl`: 'roll' (GSPMD shifted-adds), 'pointwise' (3x3x3 box contraction),
-    'pallas' (explicitly tiled single-device kernel, ops.stencil_pallas), or
-    'dist' (shard_map + ppermute halo corrections around the per-device
-    Pallas/roll kernel — the multi-chip production path,
-    parallel.dist_stencil).
+    `impl`: 'roll' (GSPMD shifted-adds), 'pointwise' (3x3x3 box
+    contraction), or 'dist' (shard_map + ppermute halo corrections — the
+    multi-device path, parallel.dist_stencil).
     """
     from poissbox_tpu.linops import LinearOperator, make_nullspace_projector
 
     deltas = grid.deltas
     if impl == "auto":
-        impl = default_impl(grid.n, grid.mesh)
+        impl = default_impl(grid.mesh)
     if impl == "dist" and getattr(grid, "uneven", False):
         impl = "uneven"  # non-divisible decomposition: padded layout
     apply_dot = None
-    local_pallas = False
-    fused_update = None
-    pupdate_apply_dot = None
     nullspace = make_nullspace_projector()
     if impl == "roll":
         apply = lambda u: apply_laplacian(u, deltas)
     elif impl == "pointwise":
         apply = lambda u: apply_laplacian_pointwise(u, deltas)
-    elif impl == "pallas":
-        from poissbox_tpu.ops.stencil_pallas import (
-            apply_laplacian_dot_pallas,
-            apply_laplacian_pallas,
-            cg_fused_update,
-        )
-        apply = lambda u: apply_laplacian_pallas(u, deltas)
-        apply_dot = lambda u: apply_laplacian_dot_pallas(u, deltas)
-        fused_update = cg_fused_update
-        # The p-update fused into the matvec is NOT bound by default — a
-        # twice-measured negative. Round 3's BlockSpec fusion lost to
-        # doubled halo fetches (bench/exp_pupd_ab.py); round 4's ALIASED
-        # streaming kernel (stencil_inplace.pupdate_matvec_stream, p'
-        # through p_old's buffer, A p' through v's) wins in isolation
-        # (4.50 ms vs separate p-update 2.40 + matvec+dot 3.64 at 512^3)
-        # yet LOSES ~1.3 ms/it end-to-end (194.3 vs 185.1 ms solve, no
-        # defensive copies in the HLO): eagerly, XLA co-schedules the p-
-        # and x-updates (both read p) into cheaper fusions than the
-        # deferred loop allows. Kernel + cg's deferred-p path stay tested.
-        local_pallas = True
     elif impl == "uneven":
         # pad-and-mask execution for decompositions that do not divide the
         # grid (PETSc DMDA parity: 64^3 on 3 ranks, reference
@@ -150,14 +117,12 @@ def make_laplacian_operator(grid, impl: str = "auto"):
         from poissbox_tpu.parallel.dist_stencil import (
             apply_laplacian_dot_sharded,
             apply_laplacian_sharded,
-            cg_fused_update_sharded,
         )
         apply = lambda u: apply_laplacian_sharded(u, grid)
         apply_dot = lambda u: apply_laplacian_dot_sharded(u, grid)
-        fused_update = lambda a, x, p, r, ap: cg_fused_update_sharded(
-            a, x, p, r, ap, grid)
     else:
-        raise ValueError(f"unknown stencil impl {impl!r}")
+        raise ValueError(f"unknown stencil impl {impl!r} "
+                         "(expected auto|roll|pointwise|dist)")
 
     diag_val = -2.0 * sum(1.0 / float(d) ** 2 for d in deltas)
 
@@ -171,9 +136,6 @@ def make_laplacian_operator(grid, impl: str = "auto"):
         nullspace=nullspace,
         symmetric=True,
         apply_dot=apply_dot,
-        local_pallas=local_pallas,
-        fused_update=fused_update,
-        pupdate_apply_dot=pupdate_apply_dot,
         direct_solve=None if grid.mesh is not None and grid.mesh.size > 1
         else direct_solve,
     )

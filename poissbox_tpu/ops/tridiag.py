@@ -1,13 +1,13 @@
 """Batched tridiagonal solvers (Thomas / parallel-scan / periodic).
 
-TPU-native replacement for the reference's serial Thomas solver
+The replacement for the reference's serial Thomas solver
 (reference src/tridsol.f90:22-115) and its periodic Sherman–Morrison variant
 (src/tridsol.f90:34-74). Argument convention matches the reference's *actual*
 usage — `(a=sub-diagonal, b=diagonal, c=super-diagonal, d=rhs)` — as pinned
 by its test fixture (reference tests/tridiag/test_tdma_utils.f90:55-65); the
 reference's dummy-argument comments mislabel b/c and are not followed.
 
-Design for TPU:
+Design:
 
   * Everything is **batched**: coefficient arrays are (n,) (shared across the
     batch — the compact-scheme case) or broadcastable to the RHS; the RHS
@@ -19,7 +19,7 @@ Design for TPU:
         vectorized op over the batch. Best when the batch is huge.
       - ``method='pscan'``: both Thomas sweeps are first-order linear
         recurrences y_i = A_i*y_{i-1} + B_i, evaluated in O(log n) depth with
-        `lax.associative_scan` — the TPU-idiomatic cyclic-reduction analogue.
+        `lax.associative_scan` — the data-parallel cyclic-reduction analogue.
   * The factorization (`thomas_factor`) is RHS-independent and hoisted, so
     repeated solves (every compact-scheme application) only run the two
     RHS sweeps. The reference recomputes the elimination in every call.

@@ -45,7 +45,7 @@ def decompose_3d(ndev: int, shape: Sequence[int]) -> tuple[int, int, int]:
     2*(sx*sy + sy*sz + sz*sx) of the per-device sub-box (sx, sy, sz), with a
     hard preference for decompositions that divide the grid exactly and for
     putting parallelism on the slowest-varying axes first (keeps the
-    innermost / lane axis contiguous on TPU).
+    innermost, contiguous axis whole).
     """
     try:
         from poissbox_tpu import native

@@ -1,10 +1,9 @@
 """Explicitly distributed stencil operators — shard_map + ppermute halos.
 
-This is the production multi-chip path: the direct analogue of the
+This is the multi-device path: the direct analogue of the
 reference's `DMGetLocalVector` + `DMGlobalToLocal` + owned-box loop
 (reference src/poissbox.f90:104-126). Every operation is expressed in
-*correction form*: each device runs the fast single-device kernel (the
-Pallas stencil/smoother kernels on TPU, the roll formulation elsewhere) on
+*correction form*: each device runs the single-device roll formulation on
 its local block with *local-periodic* wrap, while `lax.ppermute` fetches the
 true neighbor planes; the sharded faces are then patched with the linear
 correction `coeff * (halo_plane - wrapped_plane)`. Because the 7-point star
@@ -29,7 +28,6 @@ otherwise.
 from __future__ import annotations
 
 from functools import partial
-from typing import Sequence
 
 import jax
 import jax.numpy as jnp
@@ -55,16 +53,6 @@ def local_shape(grid) -> tuple[int, int, int]:
     return tuple(
         n // (grid.mesh.shape[nm] if nm is not None else 1)
         for n, nm in zip(grid.n, names))
-
-
-def pick_local_impl(grid, impl: str = "auto") -> str:
-    """Per-device kernel choice for the shard_map bulk pass: the Pallas
-    kernel when the *local* block is TPU-tile sized, rolls otherwise."""
-    if impl != "auto":
-        return impl
-    shp = local_shape(grid)
-    on_tpu = jax.default_backend() == "tpu"
-    return "pallas" if (on_tpu and min(shp) >= 16) else "roll"
 
 
 def sor_parity_local_ok(grid) -> bool:
@@ -124,32 +112,17 @@ def _apply_corrections(out: jax.Array, diffs: dict, invs, scale=1.0,
     return out
 
 
-def _mosaic_ok(dtype) -> bool:
-    from poissbox_tpu.constants import mosaic_ok
-    return mosaic_ok(dtype)
-
-
-def _local_lapl(block, deltas, local_impl):
-    if local_impl == "pallas" and _mosaic_ok(block.dtype):
-        from poissbox_tpu.ops.stencil_pallas import apply_laplacian_pallas
-        return apply_laplacian_pallas(block, deltas)
-    return apply_laplacian(block, deltas)
-
-
 def _sharded(grid, fn):
-    # check_vma=False: pallas_call inside the body produces outputs without
-    # varying-mesh-axes metadata; the specs here are exact, so the check
-    # adds nothing
     return jax.shard_map(fn, mesh=grid.mesh, in_specs=grid.spec,
-                         out_specs=grid.spec, check_vma=False)
+                         out_specs=grid.spec)
 
 
 # ---------------------------------------------------------------------------
 # operator application
 # ---------------------------------------------------------------------------
 
-def apply_laplacian_sharded(u: jax.Array, grid, overlap: bool = True,
-                            local_impl: str = "auto") -> jax.Array:
+def apply_laplacian_sharded(u: jax.Array, grid,
+                            overlap: bool = True) -> jax.Array:
     """Periodic 7-point Laplacian of a sharded field via explicit halos.
 
     overlap=True (default) is the correction form described in the module
@@ -162,11 +135,10 @@ def apply_laplacian_sharded(u: jax.Array, grid, overlap: bool = True,
     names = _local_axis_names(grid)
     mesh = grid.mesh
     deltas = grid.deltas
-    impl = pick_local_impl(grid, local_impl)
 
     if not overlap:
         @partial(jax.shard_map, mesh=mesh, in_specs=grid.spec,
-                 out_specs=grid.spec, check_vma=False)
+                 out_specs=grid.spec)
         def _apply(block):
             padded = halo_pad_local(block, mesh, names, width=1)
             return laplacian_local(padded, deltas)
@@ -177,34 +149,26 @@ def apply_laplacian_sharded(u: jax.Array, grid, overlap: bool = True,
 
     def _apply_overlap(block):
         diffs = _halo_diffs(block, mesh, names)       # collectives first
-        out = _local_lapl(block, deltas, impl)        # overlappable bulk
+        out = apply_laplacian(block, deltas)          # overlappable bulk
         return _apply_corrections(out, diffs, invs)
 
     return _sharded(grid, _apply_overlap)(u)
 
 
-def apply_laplacian_dot_sharded(u: jax.Array, grid,
-                                local_impl: str = "auto"):
-    """(A u, <u, A u>) in one sharded pass: the local fused matvec+dot
-    kernel plus the face-correction terms, dot psum'd over the mesh."""
+def apply_laplacian_dot_sharded(u: jax.Array, grid):
+    """(A u, <u, A u>) in one sharded pass: the local matvec and dot plus
+    the face-correction terms, dot psum'd over the mesh."""
     names = _local_axis_names(grid)
     mesh = grid.mesh
     deltas = grid.deltas
     invs = [1.0 / float(d) ** 2 for d in deltas]
-    impl = pick_local_impl(grid, local_impl)
     axes = tuple(n for n in set(names) if n is not None
                  and mesh.shape[n] > 1)
 
     def _apply(block):
         diffs = _halo_diffs(block, mesh, names)
-        if impl == "pallas" and _mosaic_ok(block.dtype):
-            from poissbox_tpu.ops.stencil_pallas import (
-                apply_laplacian_dot_pallas,
-            )
-            out, dot = apply_laplacian_dot_pallas(block, deltas)
-        else:
-            out = apply_laplacian(block, deltas)
-            dot = jnp.sum(block * out)
+        out = apply_laplacian(block, deltas)
+        dot = jnp.sum(block * out)
         # dot correction: <u, A_true u> = <u, A_loc u> + sum_faces u * corr
         for d, (dlo, dhi) in diffs.items():
             u_lo = block[_face_idx(block.shape, d, False)]
@@ -214,64 +178,20 @@ def apply_laplacian_dot_sharded(u: jax.Array, grid,
         return out, (lax.psum(dot, axes) if axes else dot)
 
     fn = jax.shard_map(_apply, mesh=mesh, in_specs=grid.spec,
-                       out_specs=(grid.spec, PartitionSpec()),
-                       check_vma=False)
+                       out_specs=(grid.spec, PartitionSpec()))
     return fn(u)
 
 
-def cg_fused_update_sharded(alpha, x: jax.Array, p: jax.Array, r: jax.Array,
-                            ap: jax.Array, grid, local_impl: str = "auto"):
-    """Fused CG iterate update on sharded fields: per-device one-pass
-    kernel (x' = x + alpha p, r' = r - alpha Ap, with ||r'||^2 and sum(r')
-    partials computed in the same pass), reductions psum'd over the mesh.
-    The elementwise form pays 2 extra reads of r'; on a real mesh this is
-    the per-device analogue of the single-chip fused update (VERDICT r2
-    weak #8)."""
-    names = _local_axis_names(grid)
-    mesh = grid.mesh
-    impl = pick_local_impl(grid, local_impl)
-    axes = tuple(n for n in set(names) if n is not None
-                 and mesh.shape[n] > 1)
-
-    def _upd(a, xb, pb, rb, apb):
-        if impl == "pallas" and _mosaic_ok(xb.dtype):
-            from poissbox_tpu.ops.stencil_pallas import cg_fused_update
-            xo, ro, rr, sr = cg_fused_update(a, xb, pb, rb, apb)
-        else:
-            xo = xb + a * pb
-            ro = rb - a * apb
-            rr = jnp.sum(ro * ro)
-            sr = jnp.sum(ro)
-        if axes:
-            rr = lax.psum(rr, axes)
-            sr = lax.psum(sr, axes)
-        return xo, ro, rr, sr
-
-    fn = jax.shard_map(
-        _upd, mesh=mesh,
-        in_specs=(PartitionSpec(), grid.spec, grid.spec, grid.spec,
-                  grid.spec),
-        out_specs=(grid.spec, grid.spec, PartitionSpec(), PartitionSpec()),
-        check_vma=False)
-    return fn(jnp.asarray(alpha, x.dtype), x, p, r, ap)
-
-
-def residual_sharded(x: jax.Array, b: jax.Array, grid,
-                     local_impl: str = "auto") -> jax.Array:
-    """r = b - A x (fused local residual kernel + face corrections)."""
+def residual_sharded(x: jax.Array, b: jax.Array, grid) -> jax.Array:
+    """r = b - A x (local residual + face corrections)."""
     names = _local_axis_names(grid)
     mesh = grid.mesh
     deltas = grid.deltas
     invs = [1.0 / float(d) ** 2 for d in deltas]
-    impl = pick_local_impl(grid, local_impl)
 
     def _res(xb, bb):
         diffs = _halo_diffs(xb, mesh, names)
-        if impl == "pallas" and _mosaic_ok(xb.dtype):
-            from poissbox_tpu.ops.stencil_pallas import residual_pallas
-            r = residual_pallas(xb, bb, deltas)
-        else:
-            r = bb - apply_laplacian(xb, deltas)
+        r = bb - apply_laplacian(xb, deltas)
         # r_true = r_loc - corr
         return _apply_corrections(r, diffs, invs, scale=-1.0)
 
@@ -282,23 +202,18 @@ def residual_sharded(x: jax.Array, b: jax.Array, grid,
 # smoother sweeps
 # ---------------------------------------------------------------------------
 
-def jacobi_sweep_sharded(x: jax.Array, b: jax.Array, grid, weight: float,
-                         local_impl: str = "auto") -> jax.Array:
+def jacobi_sweep_sharded(x: jax.Array, b: jax.Array, grid,
+                         weight: float) -> jax.Array:
     """Damped-Jacobi sweep x + (w/diag)(b - A x) on a sharded field."""
     names = _local_axis_names(grid)
     mesh = grid.mesh
     deltas = grid.deltas
     invs = [1.0 / float(d) ** 2 for d in deltas]
     winv = float(weight) / (-2.0 * sum(invs))
-    impl = pick_local_impl(grid, local_impl)
 
     def _sweep(xb, bb):
         diffs = _halo_diffs(xb, mesh, names)
-        if impl == "pallas" and _mosaic_ok(xb.dtype):
-            from poissbox_tpu.ops.stencil_pallas import jacobi_sweep_pallas
-            out = jacobi_sweep_pallas(xb, bb, deltas, weight)
-        else:
-            out = xb + winv * (bb - apply_laplacian(xb, deltas))
+        out = xb + winv * (bb - apply_laplacian(xb, deltas))
         # x'_true = x'_loc - winv * corr
         return _apply_corrections(out, diffs, invs, scale=-winv)
 
@@ -324,7 +239,7 @@ def _face_color_masks(shape, diffs, color: int, dtype) -> dict:
 
 
 def sor_sweep_sharded(x: jax.Array, b: jax.Array, grid, weight: float,
-                      color: int, local_impl: str = "auto") -> jax.Array:
+                      color: int) -> jax.Array:
     """One red-black SOR color update (color 0 = red, (i+j+k) even) on a
     sharded field. Requires `sor_parity_local_ok(grid)`."""
     if not sor_parity_local_ok(grid):
@@ -336,19 +251,14 @@ def sor_sweep_sharded(x: jax.Array, b: jax.Array, grid, weight: float,
     deltas = grid.deltas
     invs = [1.0 / float(d) ** 2 for d in deltas]
     winv = float(weight) / (-2.0 * sum(invs))
-    impl = pick_local_impl(grid, local_impl)
 
     def _sweep(xb, bb):
         diffs = _halo_diffs(xb, mesh, names)
-        if impl == "pallas" and _mosaic_ok(xb.dtype):
-            from poissbox_tpu.ops.stencil_pallas import sor_sweep_pallas
-            out = sor_sweep_pallas(xb, bb, deltas, weight, color)
-        else:
-            ii = lax.broadcasted_iota(jnp.int32, xb.shape, 0)
-            jj = lax.broadcasted_iota(jnp.int32, xb.shape, 1)
-            kk = lax.broadcasted_iota(jnp.int32, xb.shape, 2)
-            mask = (((ii + jj + kk) % 2) == color).astype(xb.dtype)
-            out = xb + (winv * mask) * (bb - apply_laplacian(xb, deltas))
+        ii = lax.broadcasted_iota(jnp.int32, xb.shape, 0)
+        jj = lax.broadcasted_iota(jnp.int32, xb.shape, 1)
+        kk = lax.broadcasted_iota(jnp.int32, xb.shape, 2)
+        mask = (((ii + jj + kk) % 2) == color).astype(xb.dtype)
+        out = xb + (winv * mask) * (bb - apply_laplacian(xb, deltas))
         masks = _face_color_masks(xb.shape, diffs, color, xb.dtype)
         # x'_true = x'_loc - winv * mask * corr
         return _apply_corrections(out, diffs, invs, scale=-winv, masks=masks)

@@ -9,7 +9,7 @@ Replaces PETSc's ghost update `DMGetLocalVector` + `DMGlobalToLocal`
 
   * **Explicit (`shard_map`):** `halo_pad_local` runs *inside* a
     `jax.shard_map` body and pads the device-local block with neighbor
-    planes via `lax.ppermute` over ICI, falling back to a local periodic
+    planes via `lax.ppermute`, falling back to a local periodic
     wrap on unsharded axes. Padding axes sequentially routes edge/corner
     halo data through two hops, so the padded block is correct for full
     box stencils (the reference uses DMDA_STENCIL_BOX, src/poissbox.f90:193),

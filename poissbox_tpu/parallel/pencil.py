@@ -10,10 +10,10 @@ keep each solve line *device-local* by repartitioning the field between
 sweeps — X-pencils -> Y-pencils -> Z-pencils — instead of parallelizing the
 recurrence across devices.
 
-TPU-native formulation: a pencil layout is just a `PartitionSpec` with the
+Formulation: a pencil layout is just a `PartitionSpec` with the
 solve dimension unsharded; the transpose is
 `jax.lax.with_sharding_constraint` to that spec, which XLA lowers to the
-minimal all-to-all over ICI. Mesh axes displaced from the solve dimension
+minimal all-to-all. Mesh axes displaced from the solve dimension
 ride along on the other dims, so total parallelism is conserved (a (px, py)
 mesh keeps px*py-way sharding in every pencil orientation, exactly like
 2decomp's 2-D processor grid).
@@ -81,7 +81,7 @@ def reshard_chain(f: jax.Array, mesh, from_spec: PartitionSpec,
     between two array dims to an all-to-all, but falls back to full
     rematerialization (replicate + re-slice) when several axes migrate at
     once. Decomposing the pencil transposes into single-axis steps keeps
-    every hop an all-to-all over ICI — the 2decomp transpose schedule.
+    every hop an all-to-all — the 2decomp transpose schedule.
     """
     cur = _entries(from_spec)
     dst = _entries(to_spec)

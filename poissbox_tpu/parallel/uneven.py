@@ -4,7 +4,7 @@ PETSc's DMDA runs any process count over any grid: 64^3 on 3 ranks is the
 reference's canonical demo, with the 90112/86016/86016 DoF split (reference
 README.md:25-33, src/poissbox.f90:191-200 PETSC_DECIDE). XLA's GSPMD, by
 contrast, requires every sharded axis to divide evenly (`jax.device_put`
-raises otherwise). This module closes that gap the TPU-native way:
+raises otherwise). This module closes that gap with a layout:
 
   * fields live in a **padded layout**: each sharded axis of global extent
     `n` over `p` devices is stored with extent `p * L`, `L = ceil(n/p)`;
@@ -88,9 +88,8 @@ def is_uneven(n: Sequence[int], pgrid: Sequence[int]) -> bool:
 def _axis_valid_and_gidx(nd: int, p: int):
     """(valid_1d bool, global_index_1d int32) for one axis, computed with
     jnp from iotas — NOT a baked host table: an O(n^3) literal would ship
-    with every compiled program (1.7 GB at 768^3-class uneven grids and a
-    remote-compile payload blowout); the iota form costs XLA a negligible
-    folded computation instead."""
+    with every compiled program (1.7 GB at 768^3-class uneven grids); the
+    iota form costs XLA a negligible folded computation instead."""
     L, counts, starts, _, _ = axis_plan(nd, p)
     base, rem = divmod(nd, p)
     q = jnp.arange(p * L, dtype=jnp.int32)

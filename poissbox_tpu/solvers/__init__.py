@@ -14,11 +14,11 @@ README.md:42-49). Here the same capability surface is pure JAX:
                          so GMG is the idiomatic equivalent)
   - solvers.ksp ........ options-driven dispatcher (KSPSetFromOptions analog)
   - solvers.refine ..... mixed-precision iterative refinement (f32 inner
-                         solves, f64 true residuals — the TPU-native route
+                         solves, f64 true residuals — the fast route
                          to the reference's double-precision accuracy)
   - solvers.fft ........ FFT direct solve for the fully periodic case
                          (exact spectral inverse of the discrete operator;
-                         no reference analogue — TPU-first fast path)
+                         no reference analogue)
 
 All solvers are jit-compatible (`lax.while_loop` outer iterations, psum-style
 global reductions via jnp on sharded arrays), handle the singular periodic

@@ -47,15 +47,11 @@ def emit_monitor(k: Array, rnorm: Array) -> None:
 class _CGState(NamedTuple):
     x: Array
     r: Array
-    p: Array         # search direction (deferred-update path: the
-    #                  PREVIOUS direction; this iteration's p is formed
-    #                  inside the fused matvec kernel from v/bz)
+    p: Array         # search direction
     rz: Array        # <r, z> for the current residual
     resnorm: Array   # ||r||_2
     k: Array         # iteration counter
     hist: Array      # residual-norm history
-    v: tuple | Array = ()   # deferred p-update: raw preconditioned resid
-    bz: tuple | Array = ()  # deferred p-update: stacked (beta, zshift)
 
 
 def _dot(a: Array, b: Array) -> Array:
@@ -168,39 +164,12 @@ def cg(
         A.nullspace, "is_constant_projector", False)
     explicit_proj = A.nullspace is not None and not project_z
     inv_n = 1.0 / b.size
-    # fused x/r update + in-pass ||r||^2, sum(r) partials: operators bind
-    # their own form (single-device Pallas kernel, or its shard_map
-    # wrapper with psum'd partials on distributed operators)
-    fuse_upd = getattr(A, "fused_update", None) is not None and b.ndim == 3
-    # fused coupling reductions: an MG preconditioner that folds
-    # (<r, M r>, sum(M r)) into its final post-smooth kernel removes the
-    # separate reduction pass over (r, v). Not used with an explicit
-    # projector (v is post-projected) or flexible CG (needs <A p, v> too).
-    apply_dots = (getattr(M, "apply_dots", None)
-                  if not explicit_proj and not flexible else None)
-    # full M-side fusion: the r-update r' = r - alpha*Ap, its reductions,
-    # AND the coupling dots all ride the V-cycle's own kernel streams
-    # (make_mg_preconditioner.apply_update_dots); x updates separately as
-    # one XLA fusion. Supersedes fused_update + apply_dots when present.
-    apply_upd_dots = (getattr(M, "apply_update_dots", None)
-                      if not explicit_proj and not flexible
-                      and b.ndim == 3 else None)
-    # deferred search-direction update: p' = (v - zshift) + beta*p forms
-    # INSIDE the next iteration's fused matvec kernel (its reads of v and
-    # p ride the stencil's halo-extended fetches) — the separate 3-stream
-    # p-update pass disappears. The state then carries (v, (beta, zshift))
-    # instead of eagerly materializing p'.
-    defer_p = (getattr(A, "pupdate_apply_dot", None) is not None
-               and b.ndim == 3)
 
     def body(s: _CGState) -> _CGState:
-        if defer_p:
-            p, Ap, pAp = A.pupdate_apply_dot(s.v, s.p, s.bz[0], s.bz[1])
-        elif A.apply_dot is not None:
-            p = s.p
+        p = s.p
+        if A.apply_dot is not None:
             Ap, pAp = A.apply_dot(p)
         else:
-            p = s.p
             Ap = A(p)
             pAp = _dot(p, Ap)
         # breakdown guard: pAp (or rz) vanishes when the residual has
@@ -210,39 +179,19 @@ def cg(
         # already converged to working precision, so report that)
         ok = (pAp != 0.0) & (s.rz != 0.0)
         alpha = jnp.where(ok, s.rz / jnp.where(ok, pAp, 1.0), 0.0)
-        if apply_upd_dots is not None:
-            # NB the x-update is DEFERRED to sit adjacent to the p-update
-            # at the end of the body: both read p, so XLA sibling-fuses
-            # them into one pass over (x, p, v) — 5 streams instead of 6
-            v, r, rr_k, sr_k, rv, sv = apply_upd_dots(s.r, Ap, alpha)
-            sr = sr_k
-            rr = None if natural else rr_k
-        elif fuse_upd:
-            x, r, rr_k, sr_k = A.fused_update(alpha, s.x, p, s.r, Ap)
+        x = s.x + alpha * p
+        r = s.r - alpha * Ap
+        v = precond(r)
+        if explicit_proj:
+            v = A.project(v)
+        if M is None and not explicit_proj:
+            rr = _dot(r, r)
+            rv, sv, sr = rr, jnp.sum(r), None
         else:
-            x = s.x + alpha * p
-            r = s.r - alpha * Ap
-            rr_k = sr_k = None
-        if apply_upd_dots is not None:
-            pass  # v, rv, sv, sr, rr already set above
-        elif apply_dots is not None:
-            v, rv, sv = apply_dots(r)
-            sr = sr_k if fuse_upd else jnp.sum(r)
-            rr = (None if natural
-                  else (rr_k if fuse_upd else _dot(r, r)))
-        else:
-            v = precond(r)
-            if explicit_proj:
-                v = A.project(v)
-            if M is None and not explicit_proj:
-                rr = rr_k if fuse_upd else _dot(r, r)
-                rv, sv, sr = rr, (sr_k if fuse_upd else jnp.sum(r)), None
-            else:
-                rv = _dot(r, v)
-                sv = jnp.sum(v)
-                sr = sr_k if fuse_upd else jnp.sum(r)
-                rr = (None if natural
-                      else (rr_k if fuse_upd else _dot(r, r)))
+            rv = _dot(r, v)
+            sv = jnp.sum(v)
+            sr = jnp.sum(r)
+            rr = None if natural else _dot(r, r)
         if project_z:
             rz_new = rv - sv * ((sv if sr is None else sr) * inv_n)
             zshift = sv * inv_n
@@ -266,24 +215,10 @@ def cg(
         hist = s.hist.at[k].set(resnorm)
         if monitor:
             emit_monitor(k, resnorm)
-        if apply_upd_dots is not None:
-            x = s.x + alpha * p  # fuses with the p-update below (shared p)
-        if defer_p:
-            # p' forms inside next iteration's fused matvec; carry its
-            # ingredients instead of materializing it now
-            bz = jnp.stack([beta.astype(b.dtype),
-                            jnp.asarray(zshift, b.dtype)])
-            return _CGState(x, r, p, rz_new, resnorm, k, hist, v=v, bz=bz)
         p_next = (v - zshift) + beta * p
         return _CGState(x, r, p_next, rz_new, resnorm, k, hist)
 
-    if defer_p:
-        zero2 = jnp.zeros((2,), b.dtype)
-        # first direction: p0 = (z - 0) + 0 * 0 = z, formed in-kernel
-        init = _CGState(x, r, jnp.zeros_like(b), rz, rnorm0, jnp.int32(0),
-                        hist, v=z, bz=zero2)
-    else:
-        init = _CGState(x, r, p, rz, rnorm0, jnp.int32(0), hist)
+    init = _CGState(x, r, p, rz, rnorm0, jnp.int32(0), hist)
     final = lax.while_loop(cond, body, init)
 
     reason = classify(final.resnorm, final.k, bnorm, rtol_, atol_, max_it)

@@ -20,6 +20,7 @@ from poissbox_tpu.linops import LinearOperator
 from poissbox_tpu.solvers.result import SolveResult, classify
 
 Array = jax.Array
+_HIGHEST = lax.Precision.HIGHEST
 
 
 class _CycleState(NamedTuple):
@@ -61,9 +62,9 @@ def clamp_restart(restart: int, b: Array, budget_bytes=None) -> int:
 
     PETSc's GMRES(30) default (the reference's implicit default KSP,
     reference src/poissbox.f90:295) allocates 31 field-sized vectors — at
-    512^3 f32 that is ~16.6 GB, over a v5e chip's HBM. Rather than OOM,
-    shrink m to the largest affordable value and warn (more restarts, same
-    convergence semantics)."""
+    512^3 f32 that is ~16.6 GB, more than a small device holds. Rather
+    than OOM, shrink m to the largest affordable value and warn (more
+    restarts, same convergence semantics)."""
     import warnings
 
     budget = _basis_budget_bytes() if budget_bytes is None else int(budget_bytes)
@@ -134,20 +135,23 @@ def gmres(
         active = (s.resnorm > target(rnorm0)) & (j == s.jdone)
 
         if use_fused:
-            # unpreconditioned: the fused matvec+dot kernel returns
-            # <V_j, A V_j> for free — exactly the j-th MGS coefficient
+            # unpreconditioned: the operator's matvec+dot returns
+            # <V_j, A V_j> in the same pass — exactly the j-th MGS coefficient
             Av, vAv = A.apply_dot(s.V[j])
             w = A.project(Av)
         else:
             w = pres(A(s.V[j]))
         # Modified-Gram–Schmidt against the whole (zero-padded) basis: rows
-        # beyond j are zero so they contribute nothing.
-        h = jnp.tensordot(s.V, w, axes=(fdims, tuple(range(b.ndim))))
+        # beyond j are zero so they contribute nothing. HIGHEST precision:
+        # an f32 contraction may otherwise run in TF32 (~3 digits), which
+        # would quietly weaken the orthogonalisation.
+        h = jnp.tensordot(s.V, w, axes=(fdims, tuple(range(b.ndim))),
+                          precision=_HIGHEST)
         if use_fused:
             # the projection is rank-one (constant mean removal) and V_j is
             # mean-free, so <V_j, project(A V_j)> == <V_j, A V_j>
             h = h.at[j].set(vAv)
-        w = w - jnp.tensordot(h, s.V, axes=((0,), (0,)))
+        w = w - jnp.tensordot(h, s.V, axes=((0,), (0,)), precision=_HIGHEST)
         hnext = jnp.sqrt(jnp.sum(w * w))
         vnext = w / jnp.maximum(hnext, tiny)
 
@@ -215,7 +219,7 @@ def gmres(
         Hm = jnp.where(used[None, :] & used[:, None], s.H[:m, :m], 0.0)
         Hm = Hm + jnp.diag(jnp.where(used, 0.0, 1.0).astype(b.dtype))
         y = jax.scipy.linalg.solve_triangular(Hm, jnp.where(used, s.g[:m], 0.0))
-        dx = jnp.tensordot(y, s.V[:m], axes=((0,), (0,)))
+        dx = jnp.tensordot(y, s.V[:m], axes=((0,), (0,)), precision=_HIGHEST)
         x = A.project(outer.x + dx)
         return _OuterState(x, s.resnorm, s.k, s.hist)
 

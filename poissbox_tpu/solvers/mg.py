@@ -11,15 +11,13 @@ equivalent is *geometric* multigrid:
     7-point Laplacians (uniform periodic grid — re-discretization and
     Galerkin coarsening agree to the order of the scheme);
   * smoothers: red-black SOR (the parallel-correct SOR ordering — plain
-    lexicographic SOR is sequential and has no TPU analogue) or weighted
+    lexicographic SOR is sequential and has no data-parallel form) or weighted
     Jacobi, both expressed as masked stencil updates that XLA fuses; the
     post-smoother runs colors in reverse (black-red) so one V-cycle is a
     symmetric operator, as CG preconditioning requires;
   * transfers: cell-centered full-weighting restriction and trilinear
-    prolongation (the variational pair P = 2 R^T), in two cross-checked
-    formulations: reshapes/rolls that GSPMD partitions ('roll'), and
-    per-axis banded-matrix contractions on the MXU ('matmul', ~2.5x
-    faster on TPU — the default there);
+    prolongation (the variational pair P = 2 R^T), as reshapes and rolls
+    that XLA fuses and GSPMD partitions;
   * coarse solve: dense pseudo-inverse of the assembled coarse Laplacian via
     SVD with the zero singular value (constant null space) truncated —
     exactly the `-mg_coarse_sub_pc_type svd` semantics; computed once at
@@ -32,14 +30,13 @@ static Python list, so jit unrolls the cycle into one fused program.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Callable, Optional, Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from poissbox_tpu.ops.stencil import apply_laplacian, default_impl
+from poissbox_tpu.ops.stencil import apply_laplacian
 
 Array = jax.Array
 
@@ -51,11 +48,10 @@ class MGConfig:
     levels: int = 0               # 0 = auto (coarsen while divisible, > coarse_size)
     smoother: str = "sor"         # "sor" (red-black) | "jacobi" | "chebyshev"
     # -1 = auto, resolved against the fine-grid size when the
-    # preconditioner is built (see _resolve_sweeps for the measured
-    # end-to-end optima on v5e: V(1,1) at 512^3-class, V(2,2) at
-    # 256^3-class, V(3,3) below — weaker smoothing + more Krylov
-    # iterations wins as the VPU-bound fine-level sweeps grow relative
-    # to the CG vector algebra).
+    # preconditioner is built (see _resolve_sweeps: V(1,1) at 512^3-class,
+    # V(2,2) at 256^3-class, V(3,3) below — weaker smoothing + more
+    # Krylov iterations as the fine-level sweeps grow relative to the CG
+    # vector algebra).
     pre_smooth: int = -1          # smoother sweeps before coarse correction
     post_smooth: int = -1         # ... and after (reversed ordering)
     damping: Optional[float] = None  # None = per-smoother default (sor 1.0, jacobi 8/9)
@@ -75,12 +71,9 @@ class MGConfig:
     # the sub-1% -work levels don't pay back); depth 2 doubles the two
     # largest sub-fine levels, which carry ~97% of the sub-fine work.
     w_depth: int = 2
-    impl: str = "auto"            # level-operator impl: auto | roll | pallas
-    transfers: str = "auto"       # restriction/prolongation: auto | roll | matmul
-    # Cycle compute dtype ("" = the field dtype). "bfloat16" halves the HBM
-    # bytes of every smoother sweep, residual, and transfer — on TPU the
-    # smoothing passes are bandwidth-bound, so the cycle runs ~2x faster.
-    # The preconditioner stays a fixed linear operator (same cycle every
+    # Cycle compute dtype ("" = the field dtype). "bfloat16" halves the
+    # memory bytes of every smoother sweep, residual, and transfer — the
+    # smoothing passes are bandwidth-bound. The preconditioner stays a fixed linear operator (same cycle every
     # application); bf16 rounding weakens it slightly, typically costing
     # 0-2 extra outer CG iterations — a large net win at 256^3+. The
     # coarse pseudo-inverse solve always runs in the setup dtype.
@@ -90,7 +83,7 @@ class MGConfig:
     # iterate x1 feeds a full-precision residual r = b - A x1 that accounts
     # for whatever x1 actually is, so its rounding perturbs only the
     # convergence RATE (the error modes left for the coarse grid), not the
-    # fixed point — the downward-leg bytes halve at ~zero iteration cost,
+    # fixed point — the pre-smooth bytes halve at ~zero iteration cost,
     # where a full-bf16 cycle quantizes the output and stalls plain CG
     # near 5e-6 relative. Post-smoothing stays in the cycle dtype.
     pre_dtype: str = ""
@@ -139,46 +132,19 @@ class _Level:
     mesh: Optional[object] = None
 
 
-def _use_pallas(lvl: _Level, cfg: MGConfig, dtype=None) -> bool:
-    """Single-device Pallas selection. Distributed levels (lvl.grid) never
-    take this path — their per-device kernel choice happens inside
-    parallel.dist_stencil under shard_map, where pallas_call is legal on a
-    real multi-chip mesh. f64 levels (x64 mode) never take it either:
-    Mosaic cannot lower f64 (see constants.mosaic_ok)."""
-    if lvl.grid is not None:
-        return False
-    if dtype is not None:
-        from poissbox_tpu.constants import mosaic_ok
-        if not mosaic_ok(dtype):
-            return False
-    impl = cfg.impl
-    if impl == "auto":
-        impl = default_impl(lvl.shape, dtype=dtype)
-    return impl == "pallas"
-
-
-def _local_impl(cfg: MGConfig) -> str:
-    """Per-device bulk-kernel choice for distributed levels."""
-    return cfg.impl if cfg.impl in ("roll", "pallas") else "auto"
-
-
 def _is_uneven(lvl: _Level) -> bool:
     return lvl.grid is not None and getattr(lvl.grid, "uneven", False)
 
 
 def _lapl(x: Array, lvl: _Level, cfg: MGConfig) -> Array:
     """Level-operator application: distributed correction-form on sharded
-    levels, tiled Pallas kernel on single-device TPU, GSPMD rolls else."""
+    levels, XLA rolls else."""
     if _is_uneven(lvl):
         from poissbox_tpu.parallel.uneven import apply_laplacian_uneven
         return apply_laplacian_uneven(x, lvl.grid)
     if lvl.grid is not None:
         from poissbox_tpu.parallel.dist_stencil import apply_laplacian_sharded
-        return apply_laplacian_sharded(x, lvl.grid,
-                                       local_impl=_local_impl(cfg))
-    if _use_pallas(lvl, cfg, x.dtype):
-        from poissbox_tpu.ops.stencil_pallas import apply_laplacian_pallas
-        return apply_laplacian_pallas(x, lvl.deltas)
+        return apply_laplacian_sharded(x, lvl.grid)
     return apply_laplacian(x, lvl.deltas)
 
 
@@ -188,10 +154,7 @@ def _residual(x: Array, b: Array, lvl: _Level, cfg: MGConfig) -> Array:
         return residual_uneven(x, b, lvl.grid)
     if lvl.grid is not None:
         from poissbox_tpu.parallel.dist_stencil import residual_sharded
-        return residual_sharded(x, b, lvl.grid, local_impl=_local_impl(cfg))
-    if _use_pallas(lvl, cfg, b.dtype):
-        from poissbox_tpu.ops.stencil_pallas import residual_pallas
-        return residual_pallas(x, b, lvl.deltas)
+        return residual_sharded(x, b, lvl.grid)
     return b - apply_laplacian(x, lvl.deltas)
 
 
@@ -276,54 +239,6 @@ def prolong(c: Array) -> Array:
     return c
 
 
-# -- MXU formulation: transfers as banded-matrix contractions ---------------
-
-@functools.lru_cache(maxsize=None)
-def _restrict_matrix(n: int, dtype_name: str):
-    """1-D full-weighting restriction as a dense (n/2, n) banded matrix.
-    P = 2 R^T (the variational pair). Cached per (n, dtype)."""
-    import jax
-
-    with jax.ensure_compile_time_eval():
-        R = np.zeros((n // 2, n))
-        for I in range(n // 2):
-            R[I, (2 * I - 1) % n] += 1.0 / 8.0
-            R[I, 2 * I] += 3.0 / 8.0
-            R[I, (2 * I + 1) % n] += 3.0 / 8.0
-            R[I, (2 * I + 2) % n] += 1.0 / 8.0
-        return jnp.asarray(R, jnp.dtype(dtype_name))
-
-
-def restrict_mm(f: Array, axes=(0, 1, 2)) -> Array:
-    """restrict() evaluated as MXU contractions — one banded matmul per
-    axis, each a single fused memory pass (vs the roll formulation's
-    many). f32 inputs use HIGHEST precision so the 4-tap sums stay exact.
-    `axes` restricts the contraction set (the fused residual+x-restrict
-    Pallas kernel handles axis 0 itself and passes axes=(1, 2))."""
-    import jax
-
-    prec = jax.lax.Precision.HIGHEST
-    out = f
-    for ax in axes:
-        R = _restrict_matrix(f.shape[ax], jnp.dtype(f.dtype).name)
-        out = jnp.moveaxis(
-            jnp.tensordot(R, out, axes=(1, ax), precision=prec), 0, ax)
-    return out
-
-
-def prolong_mm(c: Array, axes=(0, 1, 2)) -> Array:
-    """prolong() as MXU contractions with P = 2 R^T."""
-    import jax
-
-    prec = jax.lax.Precision.HIGHEST
-    out = c
-    for ax in axes:
-        R = _restrict_matrix(2 * c.shape[ax], jnp.dtype(c.dtype).name)
-        out = jnp.moveaxis(
-            jnp.tensordot(2.0 * R.T, out, axes=(1, ax), precision=prec), 0, ax)
-    return out
-
-
 # ---------------------------------------------------------------------------
 # smoothers
 # ---------------------------------------------------------------------------
@@ -337,27 +252,8 @@ def _color_mask(shape, dtype) -> Array:
 
 
 def _smooth(x: Optional[Array], b: Array, lvl: _Level, cfg: MGConfig,
-            sweeps: int, reverse: bool, dots: bool = False):
+            sweeps: int, reverse: bool):
     """`sweeps` smoothing iterations of the level operator.
-
-    `dots=True` (final fine-level post-smooth only) also returns
-    (<x_out, b>, sum(x_out)) — the CG coupling reductions <r, M r> and
-    sum(M r). The in-place SOR kernel accumulates them during its last
-    sweep at zero extra HBM cost; every other path computes them
-    explicitly (cost parity with the caller doing it).
-    """
-    out = _smooth_impl(x, b, lvl, cfg, sweeps, reverse, dots)
-    if not dots:
-        return out
-    if isinstance(out, tuple):
-        return out
-    return out, jnp.sum(out * b), jnp.sum(out)
-
-
-def _smooth_impl(x: Optional[Array], b: Array, lvl: _Level, cfg: MGConfig,
-                 sweeps: int, reverse: bool, dots: bool = False):
-    """_smooth's body; returns x, or (x, rv, sv) from the fused-dots
-    in-place SOR path when `dots` (see _smooth).
 
     This is the Richardson-with-SOR/Jacobi level solve of the reference's MG
     configuration (reference README.md:43-47), with fixed sweep count in
@@ -368,7 +264,7 @@ def _smooth_impl(x: Optional[Array], b: Array, lvl: _Level, cfg: MGConfig,
     `x=None` means a zero initial guess (the V-cycle's pre-smooth): the
     first partial update is evaluated in closed form (A·0 = 0), saving one
     full stencil pass — and, distributed, one halo exchange — per level
-    per cycle on every backend.
+    per cycle.
     """
     if sweeps < 0:
         raise ValueError(
@@ -379,7 +275,6 @@ def _smooth_impl(x: Optional[Array], b: Array, lvl: _Level, cfg: MGConfig,
         # included), or the cycle loses its transpose pairing
         return jnp.zeros_like(b) if x is None else x
     inv_diag = 1.0 / lvl.diag
-    pallas = _use_pallas(lvl, cfg, b.dtype)
     dist = lvl.grid is not None
     if cfg.smoother == "jacobi":
         w = 8.0 / 9.0 if cfg.damping is None else cfg.damping
@@ -394,13 +289,7 @@ def _smooth_impl(x: Optional[Array], b: Array, lvl: _Level, cfg: MGConfig,
                 return x
             from poissbox_tpu.parallel.dist_stencil import jacobi_sweep_sharded
             for _ in range(sweeps):
-                x = jacobi_sweep_sharded(x, b, lvl.grid, w,
-                                         local_impl=_local_impl(cfg))
-            return x
-        if pallas:
-            from poissbox_tpu.ops.stencil_pallas import jacobi_sweep_pallas
-            for _ in range(sweeps):
-                x = jacobi_sweep_pallas(x, b, lvl.deltas, w)
+                x = jacobi_sweep_sharded(x, b, lvl.grid, w)
             return x
         for _ in range(sweeps):
             x = x + w * inv_diag * (b - apply_laplacian(x, lvl.deltas))
@@ -437,19 +326,6 @@ def _smooth_impl(x: Optional[Array], b: Array, lvl: _Level, cfg: MGConfig,
     if cfg.smoother == "sor":
         w = 1.0 if cfg.damping is None else cfg.damping
         order = [1, 0] if reverse else [0, 1]  # color 0 = red, (i+j+k) even
-        if x is None and pallas and not dist:
-            # zero-guess first sweep as a dedicated 2-pass kernel (reads
-            # only b; the generic closed-form + single-color combination
-            # costs 5 passes and measured slower)
-            from poissbox_tpu.ops.stencil_pallas import (
-                sor_rb_multisweep_pallas,
-                sor_rb_zero_sweep_pallas,
-            )
-            x = sor_rb_zero_sweep_pallas(b, lvl.deltas, w, reverse=reverse)
-            if sweeps > 1:
-                x = sor_rb_multisweep_pallas(x, b, lvl.deltas, w, sweeps - 1,
-                                             reverse=reverse)
-            return x
         half = False
         if x is None:
             # first color from zero in closed form (one elementwise pass),
@@ -474,22 +350,12 @@ def _smooth_impl(x: Optional[Array], b: Array, lvl: _Level, cfg: MGConfig,
                 return x
             from poissbox_tpu.parallel.dist_stencil import sor_sweep_sharded
             if half:
-                x = sor_sweep_sharded(x, b, lvl.grid, w, order[1],
-                                      local_impl=_local_impl(cfg))
+                x = sor_sweep_sharded(x, b, lvl.grid, w, order[1])
                 sweeps -= 1
             for _ in range(sweeps):
                 for color in order:
-                    x = sor_sweep_sharded(x, b, lvl.grid, w, color,
-                                          local_impl=_local_impl(cfg))
+                    x = sor_sweep_sharded(x, b, lvl.grid, w, color)
             return x
-        if pallas:
-            # x is not None here: the zero-guess case returned above
-            # (pallas is also always False on distributed levels)
-            from poissbox_tpu.ops.stencil_pallas import (
-                sor_rb_multisweep_pallas,
-            )
-            return sor_rb_multisweep_pallas(x, b, lvl.deltas, w, sweeps,
-                                            reverse=reverse, dots=dots)
         red = _color_mask(lvl.shape, b.dtype)
         masks = {0: red, 1: 1.0 - red}
         if half:
@@ -574,81 +440,26 @@ def _coarse_correct(levels: Sequence[_Level], coarse_pinv: Array,
     return ec
 
 
-def _fused_leg(levels: Sequence[_Level], cfg: MGConfig, idx: int,
-               dtype=None) -> bool:
-    """True when level `idx` takes the fused Pallas downward/upward leg of
-    _v_cycle_rest (residual+x-restrict / x-prolong+add kernels) — the path
-    that can consume a narrow (pre_dtype) pre-smooth iterate directly."""
-    if idx >= len(levels) - 1:
-        return False
-    lvl = levels[idx]
-    tr = cfg.transfers
-    if tr == "auto":
-        tr = "matmul" if jax.devices()[0].platform == "tpu" else "roll"
-    if lvl.grid is not None or levels[idx + 1].grid is not None:
-        tr = "roll"
-    return tr == "matmul" and _use_pallas(lvl, cfg, dtype)
-
-
 def v_cycle(levels: Sequence[_Level], coarse_pinv: Array, cfg: MGConfig,
-            b: Array, idx: int = 0, dots: bool = False):
+            b: Array, idx: int = 0) -> Array:
     """One V-cycle for the level-`idx` system A_idx e = b. Pure; levels are
-    static so jit unrolls the recursion.
-
-    `dots=True` (top level only) returns (x, <x, b>, sum(x)) with the
-    reductions folded into the final post-smooth kernel where possible —
-    the CG coupling dots <r, M r>, sum(M r) without their own HBM pass."""
+    static so jit unrolls the recursion."""
     lvl = levels[idx]
     if idx == len(levels) - 1:
         # coarse solve in the pinv's (setup) precision regardless of the
-        # cycle dtype; cast back so the upward sweep stays uniform
+        # cycle dtype; cast back so the upward sweep stays uniform.
+        # HIGHEST: an f32 matmul may otherwise run in TF32 (~3 digits)
         flat = b.reshape(-1).astype(coarse_pinv.dtype)
-        return (coarse_pinv @ flat).reshape(lvl.shape).astype(b.dtype)
+        x = jnp.matmul(coarse_pinv, flat, precision=jax.lax.Precision.HIGHEST)
+        return x.reshape(lvl.shape).astype(b.dtype)
     pd = jnp.dtype(cfg.pre_dtype) if cfg.pre_dtype else None
     if pd is not None and pd != b.dtype:
         # low-precision pre-smooth: x1's rounding is fully absorbed by the
-        # full-precision residual below (see MGConfig.pre_dtype). The
-        # fused downward leg consumes the narrow iterate directly (the
-        # residual+x-restrict and x-prolong+add kernels upcast in-VMEM);
-        # other paths cast back before the mixed-dtype ops they lack.
+        # full-precision residual below (see MGConfig.pre_dtype)
         x = _smooth(None, b.astype(pd), lvl, cfg, cfg.pre_smooth,
-                    reverse=False)
-        if not _fused_leg(levels, cfg, idx, b.dtype):
-            x = x.astype(b.dtype)
+                    reverse=False).astype(b.dtype)
     else:
         x = _smooth(None, b, lvl, cfg, cfg.pre_smooth, reverse=False)
-    return _v_cycle_rest(levels, coarse_pinv, cfg, x, b, idx, dots)
-
-
-def _v_cycle_rest(levels: Sequence[_Level], coarse_pinv: Array,
-                  cfg: MGConfig, x: Array, b: Array, idx: int,
-                  dots: bool = False):
-    """The cycle below/after the pre-smooth: residual, restrict, child
-    correction, prolong, post-smooth. Split out so the fused
-    r-update-in-pre-smooth entry (`make_mg_preconditioner.apply_update_dots`)
-    can reuse it verbatim."""
-    lvl = levels[idx]
-    tr = cfg.transfers
-    if tr == "auto":
-        tr = "matmul" if jax.devices()[0].platform == "tpu" else "roll"
-    if lvl.grid is not None or levels[idx + 1].grid is not None:
-        tr = "roll"  # matmul transfers contract whole axes (would gather)
-    fused = tr == "matmul" and _use_pallas(lvl, cfg, b.dtype)
-    if fused:
-        # downward leg fused along x: the full-size residual and prolonged
-        # correction never hit HBM (ops.stencil_pallas kernels); y/z
-        # transfers run on the half-size intermediate via the MXU form
-        from poissbox_tpu.ops.stencil_pallas import (
-            residual_xrestrict_pallas,
-            xprolong_add_pallas,
-        )
-        rc = _pin(restrict_mm(
-            residual_xrestrict_pallas(x, b, lvl.deltas), axes=(1, 2)),
-            levels[idx + 1])
-        ec = _coarse_correct(levels, coarse_pinv, cfg, rc, idx + 1)
-        x = xprolong_add_pallas(x, prolong_mm(ec, axes=(1, 2)))
-        return _smooth(x, b, lvl, cfg, cfg.post_smooth, reverse=True,
-                       dots=dots)
     r = _residual(x, b, lvl, cfg)
     if _is_uneven(lvl):
         # padded fine level -> replicated unpadded coarse level: gather the
@@ -657,28 +468,25 @@ def _v_cycle_rest(levels: Sequence[_Level], coarse_pinv: Array,
         rc = _pin(restrict(_ue.from_padded(r, lvl.grid)), levels[idx + 1])
         ec = _coarse_correct(levels, coarse_pinv, cfg, rc, idx + 1)
         x = x + _pin(_ue.to_padded(prolong(ec), lvl.grid), lvl)
-        return _smooth(x, b, lvl, cfg, cfg.post_smooth, reverse=True,
-                       dots=dots)
-    down, up = (restrict_mm, prolong_mm) if tr == "matmul" else (restrict, prolong)
-    rc = _pin(down(r), levels[idx + 1])
-    ec = _coarse_correct(levels, coarse_pinv, cfg, rc, idx + 1)
-    x = x + _pin(up(ec), lvl)
-    return _smooth(x, b, lvl, cfg, cfg.post_smooth, reverse=True, dots=dots)
+    else:
+        rc = _pin(restrict(r), levels[idx + 1])
+        ec = _coarse_correct(levels, coarse_pinv, cfg, rc, idx + 1)
+        x = x + _pin(prolong(ec), lvl)
+    return _smooth(x, b, lvl, cfg, cfg.post_smooth, reverse=True)
 
 
 def _resolve_sweeps(cfg: MGConfig, shape: Sequence[int]) -> MGConfig:
-    """Resolve pre/post_smooth = -1 (auto) against the fine-grid size —
-    the measured end-to-end optima on v5e with the fused coupling dots
-    (bench/exp_dots512.py, rtol 1e-6, iteration counts seed-stable):
+    """Resolve pre/post_smooth = -1 (auto) against the fine-grid size:
 
-      512^3-class  V(1,1) @ 7 it = 203.9 ms   (V(2,2) @ 5 it = 215.6)
-      256^3-class  V(2,2) @ 5 it = 18.5 ms    (V(3,3) @ 4 it = 20.7)
-      <= 128^3     V(3,3) kept — sub-ms solves, and the stronger cycle
-                   preserves the reference-calibrated iteration counts
+      512^3-class  V(1,1)
+      256^3-class  V(2,2)
+      <= 128^3     V(3,3) — the stronger cycle preserves the
+                   reference-calibrated iteration counts
 
-    The VPU-bound RB sweeps get more expensive relative to the CG vector
+    The fine-level sweeps get more expensive relative to the CG vector
     algebra as the grid grows, so the optimum shifts toward weaker
-    smoothing + more Krylov iterations. Explicit values pass through."""
+    smoothing + more Krylov iterations (PERF.md records the V(1,1) vs
+    V(2,2) comparison at 512^3). Explicit values pass through."""
     if cfg.pre_smooth >= 0 and cfg.post_smooth >= 0:
         return cfg
     auto = 1 if min(shape) >= 512 else (2 if min(shape) >= 256 else 3)
@@ -702,15 +510,16 @@ def make_mg_preconditioner(
     preconditioner. Pass `grid` (a meshed Grid3D) to run the fine levels
     distributed — shard_map halo exchanges around per-device kernels, with
     coarse levels replicated once they are too small to shard (the
-    TPU-native analogue of GAMG's process-count reduction on coarse grids).
+    analogue of GAMG's process-count reduction on coarse grids).
     """
     cfg = _resolve_sweeps(cfg, shape)
     if (not cfg.pre_dtype and not cfg.dtype and min(shape) >= 512
             and jnp.dtype(dtype) == jnp.float32):
-        # 512^3-class default: bf16 pre-smooth (the downward-leg bytes
+        # 512^3-class default: bf16 pre-smooth (the pre-smooth bytes
         # halve; the full-precision residual absorbs the rounding, so the
-        # iteration count is unchanged — measured at 512^3, CHANGELOG r4).
-        # Opt out with pre_dtype="float32" (an explicit no-op dtype).
+        # iteration count is unchanged; PERF.md records the on/off
+        # comparison at 512^3). Opt out with pre_dtype="float32" (an
+        # explicit no-op dtype).
         cfg = dataclasses.replace(cfg, pre_dtype="bfloat16")
     levels = _build_levels(tuple(shape), tuple(deltas), cfg, grid=grid)
     pinv = _coarse_pinv(levels[-1], cfg, dtype)
@@ -724,50 +533,6 @@ def make_mg_preconditioner(
         return x.astype(r.dtype)
 
     # resolved configuration, introspectable (tests assert the cycle shape
-    # an entry point actually built — e.g. V(2,2) at 512^3-class grids)
+    # an entry point actually built — e.g. V(2,2) at 256^3-class grids)
     M.config = cfg
-    if cfg.cycles == 1 and cdt is None and len(levels) > 1:
-        # fused coupling reductions: (M r, <r, M r>, sum(M r)) with the
-        # dots folded into the final post-smooth kernel where possible
-        # (solvers.cg consumes this instead of its own reduction pass)
-        def apply_dots(r: Array):
-            return v_cycle(levels, pinv, cfg, r, dots=True)
-        M.apply_dots = apply_dots
-
-        lvl0 = levels[0]
-        pd0 = jnp.dtype(cfg.pre_dtype) if cfg.pre_dtype else None
-        pd_ok = (pd0 is None or pd0 == jnp.dtype(dtype)
-                 or (cfg.pre_smooth == 1
-                     and _fused_leg(levels, cfg, 0, dtype)))
-        if (cfg.smoother == "sor" and cfg.pre_smooth >= 1
-                and pd_ok and lvl0.grid is None
-                and _use_pallas(lvl0, cfg, dtype)):
-            # CG's residual update fused into the cycle's FIRST kernel:
-            # apply_update_dots(r, Ap, alpha) applies the cycle to
-            # b = r - alpha*Ap formed inside the zero-guess pre-smooth,
-            # returning (v, b, ||b||^2, sum(b), <b, v>, sum(v)) — the
-            # iterate-update read-modify-write of r and both reduction
-            # passes ride the smoother kernels' own streams. With
-            # pre_dtype set (512^3-class default) the kernel emits the
-            # pre-smooth iterate NARROW while b stays full precision —
-            # the two levers compose (VERDICT r3 weak #4).
-            w = 1.0 if cfg.damping is None else cfg.damping
-            xdt = (pd0 if pd0 is not None and pd0 != jnp.dtype(dtype)
-                   else None)
-
-            def apply_update_dots(r: Array, ap: Array, alpha):
-                from poissbox_tpu.ops.stencil_pallas import (
-                    sor_rb_multisweep_pallas,
-                    sor_rb_zero_update_pallas,
-                )
-                b_new, x, rr, sr = sor_rb_zero_update_pallas(
-                    r, ap, alpha, lvl0.deltas, w, out_dtype=xdt)
-                if cfg.pre_smooth > 1:
-                    x = sor_rb_multisweep_pallas(
-                        x, b_new, lvl0.deltas, w, cfg.pre_smooth - 1,
-                        reverse=False)
-                v, rv, sv = _v_cycle_rest(levels, pinv, cfg, x, b_new, 0,
-                                          dots=True)
-                return v, b_new, rr, sr, rv, sv
-            M.apply_update_dots = apply_update_dots
     return M

@@ -9,7 +9,7 @@ cannot hide. PIPECG restructures the recurrences so that
   * the iteration's reduction group (<r, u>, <w, u>, ||r||^2) is
     *independent of* its operator applications (m = M w, n = A m), so XLA
     schedules the psum collectives concurrently with the matvec compute —
-    the TPU-native analogue of the MPI_Iallreduce overlap the algorithm
+    the analogue of the MPI_Iallreduce overlap the algorithm
     was designed for; and
   * only ONE such reduction group remains per iteration.
 

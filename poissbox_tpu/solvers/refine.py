@@ -1,9 +1,9 @@
-"""Mixed-precision iterative refinement — TPU-native path to f64 accuracy.
+"""Mixed-precision iterative refinement — a fast path to f64 accuracy.
 
 The reference runs everything in double precision because PETSc does
-(reference src/constants.f90:9-17). TPU MXU/VPU hardware is f32/bf16;
-emulated f64 throughput is an order of magnitude lower. The TPU-native
-answer is iterative refinement: solve corrections in fast f32 with the
+(reference src/constants.f90:9-17). f32 moves half the bytes of f64 per
+field, and the solver is memory-bound. The answer here is iterative
+refinement: solve corrections in fast f32 with the
 MG-preconditioned Krylov solver, accumulate the solution and compute true
 residuals in f64. Each outer iteration recovers ~7 digits, so 2-3 outer
 iterations reach f64-level relative residuals (1e-12+) at f32 speed —

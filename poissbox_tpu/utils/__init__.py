@@ -3,10 +3,10 @@
 The reference delegates observability to PETSc flags (`-log_view`,
 `-ksp_monitor`, reference README.md:48-49) and runtime safety to compiler
 strictness (`-fcheck=all -ffpe-trap=...`, reference CMakeLists.txt:17).
-The TPU-native equivalents live here: JAX profiler traces + the
-roundtrip-cancelling kernel timer (utils.profiling), process-0 structured
-logging (utils.logging), and NaN/shape/finiteness checking
-(utils.debugging).
+The equivalents here: JAX profiler traces + a steady-state wall-clock
+timer (utils.profiling), process-0 structured logging (utils.logging),
+NaN/shape/finiteness checking (utils.debugging), and the persistent
+compilation-cache location (utils.compile_cache).
 """
 
 from poissbox_tpu.utils.profiling import kernel_time, trace

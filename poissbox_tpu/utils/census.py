@@ -3,14 +3,14 @@
 The reference's DMDA contract promises exactly one width-1 halo exchange
 per operator application plus the reduction collectives of CG
 (reference src/poissbox.f90:104-105; SURVEY.md §5.8's communication
-pattern census). On TPU the same contract must hold in the *optimized
+pattern census). The same contract must hold in the *optimized
 HLO* that GSPMD emits — and nothing else: an accidental resharding shows
 up as an all-gather, a botched pencil transpose as a replicate+reslice
 instead of an all-to-all. This module parses the compiled module text
 into per-computation collective counts and byte volumes, and provides
-the analytic models the AOT-compiled programs are asserted against
-(tests/test_aot_multichip.py; recorded into MULTICHIP_r{N}.json by
-`__graft_entry__.dryrun_multichip`).
+the analytic models the compiled programs are asserted against
+(tests/test_scaling_model.py; `__graft_entry__.dryrun_multichip`
+prints the census of its sharded solves).
 
 Byte volumes are PER-DEVICE payload bytes (the operand shapes in SPMD
 HLO are already per-partition).
@@ -49,7 +49,7 @@ class Collective:
 
 def _payload_bytes(result_txt: str) -> int:
     """Payload of a collective from its RESULT type: the largest
-    non-scalar-integer buffer. (Optimized TPU HLO prints operands untyped,
+    non-scalar-integer buffer. (Optimized HLO may print operands untyped,
     so the result is the reliable shape source. Async `-start` forms
     return a tuple aliasing equal-shaped in/out buffers plus u32 context
     scalars — the max is exactly one communicated buffer; all-gather

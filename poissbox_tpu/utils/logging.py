@@ -1,7 +1,7 @@
 """Process-0 structured logging.
 
 The reference prints from every rank (`print *` on all ranks, reference
-src/example.f90:53,114); in a multi-host TPU job that floods stdout
+src/example.f90:53,114); in a multi-host job that floods stdout
 N-processes-fold. Here reporting is process-0-only by default, with the
 residual-monitor formatting of `-ksp_monitor` handled by
 SolveResult.monitor_lines (solvers.result).

@@ -8,21 +8,34 @@ distribution invariants) is exercised on the forced 8-CPU mesh — the
 replacement for the reference's "runtime self-checks under mpirun"
 methodology (reference src/example.f90:92-152).
 
-Must configure JAX before first backend use; set POISSBOX_TEST_PLATFORM=tpu
-to run against real devices instead.
+JAX is configured here, before first backend use. With JAX_PLATFORMS unset
+or "cpu" the suite runs on the virtual CPU mesh. Tests that need a GPU
+carry the `gpu` marker and take the `gpu` fixture, which skips them unless
+JAX's first device is a GPU; run them on a card with
+
+    JAX_PLATFORMS=cuda python -m pytest tests -m gpu
 """
 
 import os
 
 import jax
 
-if os.environ.get("POISSBOX_TEST_PLATFORM", "cpu") == "cpu":
+if os.environ.get("JAX_PLATFORMS", "cpu") == "cpu":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", 8)
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+
+
+@pytest.fixture
+def gpu():
+    """Skip unless JAX's first device is a GPU (decided at test time)."""
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        pytest.skip(f"needs a GPU; JAX runs on {dev.platform}")
+    return dev
 
 
 @pytest.fixture

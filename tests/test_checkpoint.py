@@ -67,7 +67,7 @@ def _problem(n=16):
 
 
 def test_inloop_checkpoint_kill_and_resume(tmp_path):
-    """Round 5 (VERDICT r4 weak #6): periodic in-loop snapshots — a solve
+    """Periodic in-loop snapshots — a solve
     killed mid-run resumes from the last chunk with <= `every` wasted
     iterations, and converges to the uninterrupted solution. Uses the
     solver of record (MG-CG), whose per-iteration linear convergence makes

@@ -152,6 +152,6 @@ def test_compact_interpolation_identity(p):
 
 
 def test_dtype_follows_input():
-    """Kernels are dtype-polymorphic (f32 TPU fast path)."""
+    """Kernels are dtype-polymorphic (f32 fast path)."""
     assert lapl_1d_coeffs(jnp.float32(0.5), jnp.float32).dtype == jnp.float32
     assert lapl_star_coeffs(0.1, 0.1, 0.1, jnp.float32).dtype == jnp.float32

@@ -212,43 +212,3 @@ class TestLaplCompact:
         assert _check(rms(out - expect)) < 1e-9
 
 
-class TestFusedKernels:
-    """The TPU fused multi-operator kernels (dual / chain / summed-RHS,
-    ops.tridiag_pallas) must match the unfused pscan composition exactly
-    (interpret mode on CPU exercises the same kernel code a TPU runs)."""
-
-    def _field(self, n=32):
-        dx = 2 * np.pi / n
-        c = (jnp.arange(n) + 0.5) * dx
-        X, Y, Z = jnp.meshgrid(c, c, c, indexing="ij")
-        return jnp.sin(X) + jnp.sin(Y) + jnp.sin(Z), (dx,) * 3
-
-    @pytest.mark.slow
-    def test_lapl_fused_matches_pscan(self):
-        f, d = self._field()
-        ref = compact.lapl(f, d, method="pscan")
-        fused = compact.lapl(f, d, method="pallas")
-        assert float(jnp.max(jnp.abs(fused - ref))) < 1e-11
-
-    def test_grad_fused_matches_pscan(self):
-        f, d = self._field()
-        ref = compact.grad(f, d, method="pscan")
-        fused = compact.grad(f, d, method="pallas")
-        assert float(jnp.max(jnp.abs(fused - ref))) < 1e-11
-
-    def test_div_fused_matches_pscan(self):
-        f, d = self._field()
-        G = compact.grad(f, d, method="pscan")
-        ref = compact.div(G, d, method="pscan")
-        fused = compact.div(G, d, method="pallas")
-        assert float(jnp.max(jnp.abs(fused - ref))) < 1e-11
-
-    def test_lapl_fused_accuracy(self):
-        # same MMS tier as the reference (test_lapl.f90:57-132) at 64^3
-        n = 64
-        dx = 2 * np.pi / n
-        c = (jnp.arange(n) + 0.5) * dx
-        X, Y, Z = jnp.meshgrid(c, c, c, indexing="ij")
-        f = jnp.sin(X) + jnp.sin(Y) + jnp.sin(Z)
-        out = np.asarray(compact.lapl(f, (dx,) * 3, method="pallas"))
-        assert rms(out + np.asarray(f)) < 1e-9

@@ -1,10 +1,8 @@
 """PCR compact-operator tests.
 
-The circulant-PCR path must agree with the Thomas-backed operators (both
-are direct solves of the same systems) to f64 roundoff, and meet the
-reference's MMS tolerance tiers (reference tests/grad, tests/div,
-tests/lapl) through the Pallas kernels (interpret mode on CPU exercises
-the same kernel code a TPU runs).
+The circulant-PCR path must agree with the Thomas-backed operators and
+with a dense numpy solve (all are direct solves of the same systems) to
+f64 roundoff, along every axis and at several line lengths.
 """
 
 import jax
@@ -33,7 +31,7 @@ class TestPcrSolve:
                 x = rng.standard_normal((n, 3))
                 d = jnp.asarray(A @ x)
                 fs, bF, aF = compact_pcr.pcr_schedule(alpha, n)
-                got = compact_pcr._vpcr(d, 0, (fs, bF, aF), pallas=False)
+                got = compact_pcr._vpcr(d, 0, (fs, bF, aF))
                 assert np.max(np.abs(np.asarray(got) - x)) < 1e-12
 
     def test_pcr_op_matches_thomas_1d(self, rng):
@@ -55,22 +53,16 @@ class TestPcrSolve:
         # which is power-of-two-only; truncated schedules are n-agnostic
         with pytest.raises(ValueError):
             compact_pcr.pcr_schedule(0.25, 48)
-        # tile-safe non-powers-of-two (multiples of 128) take the kernels;
-        # lane-unaligned sizes (48, 96) fall back — Mosaic's roll lowering
-        # hangs compiles there (observed on v5e, round 5)
-        assert compact_pcr.available((384, 640, 128), jnp.float32,
-                                     method="pcr")
-        assert not compact_pcr.available((48, 64, 64), jnp.float32,
-                                         method="pcr")
-        assert not compact_pcr.available((96, 96, 96), jnp.float32,
-                                         method="pcr")
+        with pytest.raises(ValueError):
+            compact_pcr.pcr_schedule(0.25, 2)
+        fs, _, aF = compact_pcr.pcr_schedule(0.25, 48, rtol=1e-15)
+        assert fs and aF == 0.0
 
     def test_non_power_of_two_truncated_solves(self, rng):
-        """Round 5: the truncated schedule is n-agnostic (circulant
-        elimination is exact operator algebra for any stride mod n) —
-        the round-4 non-power-of-two cliff fix (640 = 5*2^7 runs the
-        same scan-free path as 512; VERDICT r4 weak #1)."""
-        for n in (10, 12, 20, 40, 48, 96, 160, 640):
+        """The truncated schedule is n-agnostic (circulant elimination is
+        exact operator algebra for any stride mod n): 640 = 5*2^7 runs the
+        same scan-free path as 512, and short lines work too."""
+        for n in (3, 10, 12, 20, 40, 48, 96, 160, 640):
             for alpha in (9.0 / 62.0, 3.0 / 10.0):
                 A = np.zeros((n, n))
                 for i in range(n):
@@ -80,7 +72,7 @@ class TestPcrSolve:
                 x = rng.standard_normal((n, 3))
                 d = jnp.asarray(A @ x)
                 sched = compact_pcr.pcr_schedule(alpha, n, rtol=1e-15)
-                got = compact_pcr._vpcr(d, 0, sched, pallas=False)
+                got = compact_pcr._vpcr(d, 0, sched)
                 assert np.max(np.abs(np.asarray(got) - x)) < 1e-11, n
 
     def test_pcr_op_non_power_of_two_matches_thomas(self, rng):
@@ -95,78 +87,81 @@ class TestPcrSolve:
             assert float(jnp.max(jnp.abs(want - got))) < 1e-10
 
 
-class TestPcrKernels:
-    """Pallas kernels (interpret on CPU) vs the Thomas-backed operators."""
-
-    n = 32
-
-    @pytest.fixture
-    def field(self, rng):
-        return jnp.asarray(rng.uniform(-1.0, 1.0, (self.n,) * 3))
-
-    def test_grad(self, field):
-        d = (1.0 / self.n,) * 3
-        want = compact.grad(field, d, method="pscan")
-        got = compact_pcr.grad(field, d)
-        assert float(jnp.max(jnp.abs(want - got))) < 1e-11
-
-    def test_div(self, field, rng):
-        d = (1.0 / self.n,) * 3
-        F = jnp.asarray(rng.uniform(-1.0, 1.0, (self.n,) * 3 + (3,)))
-        want = compact.div(F, d, method="pscan")
-        got = compact_pcr.div(F, d)
-        assert float(jnp.max(jnp.abs(want - got))) < 1e-10
-
-    def test_interp(self, field):
-        for stagger in (-1, +1):
-            want = compact.interp(field, stagger=stagger, method="pscan")
-            got = compact_pcr.interp(field, stagger=stagger)
-            assert float(jnp.max(jnp.abs(want - got))) < 1e-12
-
-    def test_lapl(self, field):
-        d = (1.0 / self.n,) * 3
-        want = compact.lapl(field, d, method="pscan")
-        got = compact_pcr.lapl(field, d)
-        assert float(jnp.max(jnp.abs(want - got))) < 1e-10
 
 
-class TestPcrMMS:
-    """Reference tolerance tiers through the PCR kernels (reference
-    tests/lapl/test_lapl.f90:57-132: RMS <= 1e-9 at 64^3)."""
-
-    def test_lapl_sin_field(self):
-        # [0, 2*pi] domain, f = sin x + sin y + sin z -> lapl f = -f
-        # (reference tests/lapl/test_lapl.f90:57-132)
-        n = 64
-        dx = 2 * np.pi / n
-        c = jnp.asarray((np.arange(n) + 0.5) * dx)
-        f = (jnp.sin(c)[:, None, None] + jnp.sin(c)[None, :, None]
-             + jnp.sin(c)[None, None, :])
-        f = jnp.broadcast_to(f, (n, n, n)).astype(jnp.float64)
-        got = compact_pcr.lapl(f, (dx, dx, dx))
-        assert rms(got + f) <= 1e-9
-
-    def test_lapl_constant_field(self):
-        n = 16
-        got = compact_pcr.lapl(jnp.full((n, n, n), 7.5), (1.0 / n,) * 3)
-        assert float(jnp.max(jnp.abs(got))) <= 1e-10
+def _dense_compact_1d(f, coeffs, stagger, axis):
+    """Dense numpy reference of one staggered compact operator along
+    `axis`: the circulant RHS matrix R and the circulant (alpha, 1, alpha)
+    system L, applied as L^-1 R to every line."""
+    n = f.shape[axis]
+    shift = 0 if stagger == -1 else 1
+    s = float(coeffs.opsign)
+    R = np.zeros((n, n))
+    L = np.eye(n)
+    for i in range(n):
+        for k, w in ((shift, coeffs.a), (shift - 1, s * coeffs.a),
+                     (shift + 1, coeffs.b), (shift - 2, s * coeffs.b)):
+            R[i, (i + k) % n] += w
+        L[i, (i - 1) % n] += coeffs.alpha
+        L[i, (i + 1) % n] += coeffs.alpha
+    op = np.linalg.solve(L, R)
+    return np.moveaxis(np.tensordot(op, np.moveaxis(f, axis, 0), axes=1),
+                       0, axis)
 
 
-class TestOp1d:
-    """Axis-native single-op kernel (the pencil-sweep building block)."""
+class TestPcrAgainstDense:
+    """pcr_op (the default line solve) vs pscan (the Thomas reference) vs
+    a dense numpy solve, along every axis, at power-of-two and other n."""
 
-    def test_matches_thomas_every_axis(self, rng):
-        n = 32
-        f = jnp.asarray(rng.uniform(-1.0, 1.0, (n, n, n)))
+    @pytest.mark.parametrize("n", [8, 12, 40, 64])
+    @pytest.mark.parametrize("axis", [0, 1, 2])
+    def test_grad_and_interp(self, rng, n, axis):
+        from poissbox_tpu.ops.coefficients import (
+            compact_grad_coeffs,
+            compact_interp_coeffs,
+        )
+        shape = [6, 5, 7]
+        shape[axis] = n
+        f = rng.uniform(-1.0, 1.0, shape)
         dx = 1.0 / n
-        rt = compact_pcr._dtype_rtol(f.dtype)
-        for axis in (0, 1, 2):
-            for spec, want in [
-                (compact_pcr.grad_spec(dx, -1, n, rt),
-                 compact.grad_1d(f, dx, axis=axis, method="pscan")),
-                (compact_pcr.interp_spec(+1, n, rt),
-                 compact.interp_1d(f, stagger=+1, axis=axis,
-                                   method="pscan")),
-            ]:
-                got = compact_pcr.op_1d(f, spec, axis)
-                assert float(jnp.max(jnp.abs(want - got))) < 1e-11, axis
+        rt = compact_pcr._dtype_rtol(jnp.float64)
+        specs = [compact_pcr.grad_spec(dx, st, n, rt) for st in (-1, 1)]
+        specs += [compact_pcr.interp_spec(st, n, rt) for st in (-1, 1)]
+
+        @jax.jit
+        def run(v):
+            pcr = [compact_pcr.pcr_op(v, sp, axis) for sp in specs]
+            thomas = [compact.grad_1d(v, dx, stagger=st, axis=axis,
+                                      method="pscan") for st in (-1, 1)]
+            return pcr, thomas
+
+        pcr, thomas = run(jnp.asarray(f))
+        wants = [_dense_compact_1d(f, compact_grad_coeffs(dx), st, axis)
+                 for st in (-1, 1)]
+        wants += [_dense_compact_1d(f, compact_interp_coeffs(), st, axis)
+                  for st in (-1, 1)]
+        for got, want in zip(pcr + thomas, wants + wants[:2]):
+            scale = np.max(np.abs(want))
+            assert np.max(np.abs(np.asarray(got) - want)) < 1e-13 * scale
+
+
+class TestMethodChoice:
+    def test_default_method_is_known(self):
+        assert compact.DEFAULT_METHOD in compact.METHODS
+
+    @pytest.mark.parametrize("method", ["pallas", "thomas", ""])
+    def test_removed_or_unknown_method_rejected(self, method):
+        f = jnp.ones((8, 8, 8))
+        with pytest.raises(ValueError, match="method"):
+            compact.grad_1d(f, 0.125, axis=0, method=method)
+
+    @pytest.mark.parametrize("method", ["pcr", "pscan", "seq"])
+    def test_lapl_methods_agree(self, rng, method):
+        n = 16
+        f = jnp.asarray(rng.uniform(-1.0, 1.0, (n, n, 12)))
+        d = (1.0 / n, 1.0 / n, 1.0 / 12)
+        lapl = jax.jit(compact.lapl, static_argnums=(1, 2))
+        want = np.asarray(lapl(f, d, "pscan"))
+        got = np.asarray(lapl(f, d, method))
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-12 * np.max(np.abs(want)))

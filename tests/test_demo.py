@@ -2,13 +2,14 @@
 `poissbox_demo` run narrative, reference src/example.f90) and the driver
 entry points, on the 8-device CPU mesh."""
 
+import os
 import sys
 
 import jax
 import numpy as np
 import pytest
 
-sys.path.insert(0, "/root/repo")  # for __graft_entry__
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))  # for __graft_entry__
 
 
 class TestDemo:
@@ -22,7 +23,7 @@ class TestDemo:
         assert "DoF distribution" in out and "(sum ok)" in out
         assert "check_lapl" in out
         assert "converged" in out
-        assert res < 1e-7  # relative true residual
+        assert res.rel_residual < 1e-7 and res.reason > 0
 
     @pytest.mark.slow
     def test_demo_jacobi_cg(self, capsys):
@@ -30,7 +31,7 @@ class TestDemo:
         from poissbox_tpu.demo import run
         res = run(Options(["-n", "8", "-pc_type", "jacobi",
                            "-ksp_rtol", "1e-6", "-ksp_max_it", "2000"]))
-        assert res < 1e-5
+        assert res.rel_residual < 1e-5
 
     @pytest.mark.slow
     def test_demo_monitor_output(self, capsys):

@@ -259,29 +259,81 @@ class TestFFTPreconditioner:
                 < 1e-8 * float(jnp.linalg.norm(b.ravel())))
 
 
+def _rfftn_packed(u):
+    """3-D real FFT from the packed-real last-axis transform that the
+    packed pencil solve uses, plus complex transforms along y and x."""
+    from poissbox_tpu.solvers.fft import _rfft_last
+    return jnp.fft.fft(jnp.fft.fft(_rfft_last(u), axis=1), axis=0)
+
+
 class TestPackedRealFFT:
-    """The pack-two/unpack real-FFT (round 4): built only from complex
-    transforms because XLA's native rfftn mis-computes large transforms on
-    the TPU runtime. The helpers are backend-agnostic jnp code, checked
-    here against numpy's rfftn."""
+    """The pack-two/unpack real FFT along the last axis (`_rfft_last` /
+    `_irfft_last`), which the packed pencil solve runs on each z-pencil,
+    checked against numpy's rfftn."""
 
     @pytest.mark.parametrize("shape", [(8, 6, 16), (16, 16, 16),
                                        (4, 32, 64)])
     def test_matches_rfftn(self, rng, shape):
-        from poissbox_tpu.solvers.fft import _irfftn_packed, _rfftn_packed
+        from poissbox_tpu.solvers.fft import _irfft_last
         u = jnp.asarray(rng.uniform(-1, 1, shape), jnp.float32)
         got = np.asarray(_rfftn_packed(u))
         want = np.fft.rfftn(np.asarray(u)).astype(np.complex64)
         scale = np.max(np.abs(want))
         assert np.max(np.abs(got - want)) <= 1e-5 * scale
-        back = np.asarray(_irfftn_packed(jnp.asarray(want), shape[-1]))
+        w = jnp.fft.ifft(jnp.fft.ifft(jnp.asarray(want), axis=0), axis=1)
+        back = np.asarray(_irfft_last(w, shape[-1]))
         assert np.max(np.abs(back - np.asarray(u))) <= 1e-5
 
     def test_solver_uses_half_spectrum_layout(self):
         # the eigenvalue table in rfft layout must match the packed
         # spectrum shape
-        from poissbox_tpu.solvers.fft import _inv_eigenvalues, _rfftn_packed
+        from poissbox_tpu.solvers.fft import _inv_eigenvalues
         u = jnp.ones((8, 8, 8), jnp.float32)
         inv = _inv_eigenvalues((8, 8, 8), (0.1, 0.1, 0.1), jnp.float32,
                                rfft=True)
         assert _rfftn_packed(u).shape == inv.shape
+
+
+def _numpy_pinv7(b, deltas):
+    """float64 numpy pseudo-inverse of the periodic 7-point operator
+    (full complex spectrum)."""
+    b = np.asarray(b, np.float64)
+    lam = sum(
+        (-4.0 / d**2 * np.sin(np.pi * np.arange(m) / m) ** 2).reshape(
+            [m if i == ax else 1 for i in range(3)])
+        for ax, (m, d) in enumerate(zip(b.shape, deltas)))
+    inv = np.where(lam == 0.0, 0.0, 1.0 / np.where(lam == 0.0, 1.0, lam))
+    return np.real(np.fft.ifftn(np.fft.fftn(b) * inv))
+
+
+ROUTE_SHAPES = [(8, 8, 8), (8, 6, 7), (5, 9, 11), (16, 8, 4)]
+
+
+class TestSingleRoute:
+    """One FFT route on every backend: rfftn/irfftn with the half
+    spectrum, odd last axes included."""
+
+    @pytest.mark.parametrize("shape", ROUTE_SHAPES)
+    def test_poisson_matches_numpy(self, rng, shape):
+        from poissbox_tpu.solvers.fft import poisson_solve_fft
+        deltas = (0.1, 0.2, 0.15)
+        b = rng.standard_normal(shape)
+        b -= b.mean()
+        got = np.asarray(poisson_solve_fft(jnp.asarray(b), deltas))
+        want = _numpy_pinv7(b, deltas)
+        assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
+
+    @pytest.mark.parametrize("shape", ROUTE_SHAPES)
+    def test_compact_half_spectrum_solve(self, rng, shape):
+        """The compact solve's half-spectrum route inverts the compact
+        operator itself: A6 x == b for b in range(A6)."""
+        from poissbox_tpu.ops import compact
+        from poissbox_tpu.solvers.fft import compact_poisson_solve_fft
+        deltas = tuple(1.0 / m for m in shape)
+        u = jnp.asarray(rng.standard_normal(shape))
+        lapl = jax.jit(lambda v: compact.lapl(v, deltas))
+        b = lapl(u)
+        x = compact_poisson_solve_fft(b, deltas)
+        r = np.asarray(lapl(x) - b)
+        assert np.linalg.norm(r) <= 1e-10 * np.linalg.norm(np.asarray(b))
+

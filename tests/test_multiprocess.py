@@ -5,7 +5,7 @@ The reference initializes MPI and reports size/rank on every run
 this test actually exercises it across two OS processes on CPU (Gloo
 collectives), asserting process count, cross-process device visibility, a
 global reduction, and a sharded matvec — so the multi-host code path is no
-longer untested scaffolding (VERDICT round 1, missing item 5).
+longer untested scaffolding.
 """
 
 import os
@@ -180,13 +180,12 @@ def test_two_process_init_and_collectives(tmp_path):
 @pytest.mark.skipif(sys.platform != "linux", reason="gloo CPU collectives")
 # NB: a (4, "2,2,1") case was tried and hangs in Gloo's 2-rank subgroup
 # collectives on this CPU backend (shutdown barrier 2/4, ranks stuck in a
-# sub-communicator) — a gloo-backend limitation, not a code path the TPU
-# runtime shares (ICI collectives have no per-subgroup TCP rendezvous).
+# sub-communicator) — a gloo-backend limitation (accelerator collectives
+# have no per-subgroup TCP rendezvous).
 # SINGLE-AXIS process grids avoid subgroup communicators entirely (every
-# collective spans the full process set), so 3- and 4-process runs work
-# (round 5; VERDICT r4 missing #3): (3, "3,1,1") is the reference's
-# canonical `mpirun -np 3` shape and runs the padded uneven layout across
-# real OS-process boundaries.
+# collective spans the full process set), so 3- and 4-process runs work:
+# (3, "3,1,1") is the reference's canonical `mpirun -np 3` shape and runs
+# the padded uneven layout across real OS-process boundaries.
 @pytest.mark.parametrize("nproc,pgrid,n", [
     (2, "2,1,1", 32),
     (3, "3,1,1", 32),   # uneven (32/3): padded layout across processes
@@ -197,9 +196,7 @@ def test_multi_process_full_mgcg_solve_and_pencil(tmp_path, nproc, pgrid, n):
     tail) and one pencil compact Laplacian across 2, 3, and 4 OS
     processes — the reference's `mpirun -n 3` end-to-end run (reference
     README.md:25-33), with the same convergence gates as
-    `__graft_entry__.dryrun_multichip`. Retires VERDICT r3 missing item 1
-    (multi-process evidence stopped at a matvec + one reduction) and r4
-    missing item 3 (>2-process end-to-end evidence)."""
+    `__graft_entry__.dryrun_multichip`."""
     worker = tmp_path / "solve_worker.py"
     worker.write_text(_SOLVE_WORKER)
     port = _free_port()

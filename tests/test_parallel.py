@@ -37,7 +37,7 @@ class TestDecomp:
         assert 64 % px == 0 and 64 % py == 0 and 64 % pz == 0
 
     def test_lane_axis_kept_whole(self):
-        # tie-break prefers not splitting z (the TPU lane axis)
+        # tie-break prefers not splitting z (the innermost, contiguous axis)
         assert decompose_3d(4, (64, 64, 64))[2] == 1
 
     def test_owned_boxes_tile_domain(self):

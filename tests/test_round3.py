@@ -99,7 +99,7 @@ class TestOptionsLeft:
 
 
 class TestSweepPolicyUnified:
-    """VERDICT r2 task 3: with neither -mg_levels_ksp_rtol nor
+    """With neither -mg_levels_ksp_rtol nor
     -mg_levels_ksp_max_it set, the options entry point must resolve the
     same size-aware sweep counts as MGConfig() (solvers.mg._resolve_sweeps):
     V(3,3) at 256^3-class, V(2,2) at 512^3-class."""
@@ -213,7 +213,7 @@ class TestPipecgParity:
 
 class TestCensusParser:
     """utils.census HLO parsing — unit-level (the compiled-program
-    assertions live in tests/test_aot_multichip.py)."""
+    assertion lives in tests/test_scaling_model.py)."""
 
     HLO = """\
 HloModule jit_f, entry_computation_layout={...}
@@ -268,300 +268,9 @@ ENTRY %main_spmd (arg: f32[8,16]) -> f32[8,16] {
         assert want["count"] == 2 * n_ax
 
 
-class TestDistFusedUpdate:
-    """VERDICT r2 weak #8: the distributed CG path now fuses the x/r
-    iterate update with the next iteration's reductions, like the
-    single-chip path."""
-
-    def _mesh_grid(self, n=16):
-        from poissbox_tpu.mesh import Grid3D
-        return Grid3D((n, n, n)).with_mesh()
-
-    def test_sharded_update_matches_unfused(self):
-        from poissbox_tpu.parallel.dist_stencil import cg_fused_update_sharded
-        grid = self._mesh_grid()
-        if grid.mesh is None:
-            pytest.skip("needs a multi-device mesh")
-        k = jax.random.PRNGKey(3)
-        ks = jax.random.split(k, 4)
-        x, p, r, ap = (grid.shard(jax.random.normal(kk, grid.n, jnp.float64))
-                       for kk in ks)
-        alpha = 0.37
-        xo, ro, rr, sr = jax.jit(
-            lambda *a: cg_fused_update_sharded(*a, grid))(alpha, x, p, r, ap)
-        np.testing.assert_allclose(np.asarray(xo), np.asarray(x + alpha * p),
-                                   rtol=1e-12, atol=1e-14)
-        re = r - alpha * ap
-        np.testing.assert_allclose(np.asarray(ro), np.asarray(re),
-                                   rtol=1e-12, atol=1e-14)
-        np.testing.assert_allclose(float(rr), float(jnp.sum(re * re)),
-                                   rtol=1e-12)
-        np.testing.assert_allclose(float(sr), float(jnp.sum(re)),
-                                   rtol=1e-10, atol=1e-10)
-
-    def test_dist_operator_binds_fused_update(self):
-        from poissbox_tpu.ops.stencil import make_laplacian_operator
-        grid = self._mesh_grid()
-        if grid.mesh is None:
-            pytest.skip("needs a multi-device mesh")
-        A = make_laplacian_operator(grid, impl="dist")
-        assert A.fused_update is not None
-        # end-to-end: the fused-update dist CG still matches the serial one
-        from poissbox_tpu.solvers.cg import cg
-        from poissbox_tpu.mesh import Grid3D
-        A_u = make_laplacian_operator(Grid3D(grid.n), impl="roll")
-        x_exact = A_u.project(
-            jax.random.normal(jax.random.PRNGKey(11), grid.n, jnp.float64))
-        b = A_u(x_exact)
-        res_u = cg(A_u, b, rtol=1e-10, max_it=400)
-        res_s = jax.jit(lambda bb: cg(A, bb, rtol=1e-10,
-                                      max_it=400))(grid.shard(b))
-        assert bool(res_s.converged)
-        assert abs(int(res_s.iterations) - int(res_u.iterations)) <= 1
-        np.testing.assert_allclose(np.asarray(res_s.x), np.asarray(res_u.x),
-                                   rtol=1e-6, atol=1e-9)
-
-
-class TestFusedCouplingDots:
-    """make_mg_preconditioner.apply_dots: (M r, <r, M r>, sum(M r)) with
-    the reductions folded into the final post-smooth kernel (no separate
-    HBM pass on the in-place SOR path); cg consumes it automatically."""
-
-    def _setup(self, n=32):
-        from poissbox_tpu.solvers.mg import MGConfig, make_mg_preconditioner
-        grid = Grid3D((n, n, n))
-        A = make_laplacian_operator(grid)
-        M = make_mg_preconditioner(grid.n, grid.deltas, MGConfig())
-        return grid, A, M
-
-    @pytest.mark.slow
-    def test_matches_plain_apply(self):
-        grid, A, M = self._setup()
-        assert M.apply_dots is not None
-        r = A.project(jax.random.normal(jax.random.PRNGKey(0), grid.n,
-                                        jnp.float64))
-        v0 = M(r)
-        v1, rv, sv = jax.jit(M.apply_dots)(r)
-        np.testing.assert_allclose(np.asarray(v1), np.asarray(v0),
-                                   rtol=1e-12, atol=1e-15)
-        np.testing.assert_allclose(float(rv), float(jnp.sum(r * v0)),
-                                   rtol=1e-11)
-        np.testing.assert_allclose(float(sv), float(jnp.sum(v0)),
-                                   rtol=1e-8, atol=1e-12)
-
-    @pytest.mark.slow
-    def test_cg_uses_it_and_converges_identically(self):
-        from poissbox_tpu.solvers.cg import cg
-        grid, A, M = self._setup()
-        x_ex = A.project(jax.random.normal(jax.random.PRNGKey(1), grid.n,
-                                           jnp.float64))
-        b = A(x_ex)
-        res = jax.jit(lambda bb: cg(A, bb, M=M, rtol=1e-10, max_it=50))(b)
-        # strip the hook; the explicit-reduction path must agree
-        M_plain = lambda r: M(r)
-        res0 = jax.jit(lambda bb: cg(A, bb, M=M_plain, rtol=1e-10,
-                                     max_it=50))(b)
-        assert bool(res.converged)
-        assert int(res.iterations) == int(res0.iterations)
-        np.testing.assert_allclose(np.asarray(res.x), np.asarray(res0.x),
-                                   rtol=1e-9, atol=1e-12)
-
-    def test_not_exposed_for_multi_cycle_or_cast(self):
-        from poissbox_tpu.solvers.mg import MGConfig, make_mg_preconditioner
-        grid = Grid3D((32, 32, 32))
-        M2 = make_mg_preconditioner(grid.n, grid.deltas, MGConfig(cycles=2))
-        assert getattr(M2, "apply_dots", None) is None
-        Mb = make_mg_preconditioner(grid.n, grid.deltas,
-                                    MGConfig(dtype="bfloat16"))
-        assert getattr(Mb, "apply_dots", None) is None
-
-    def test_zero_update_kernel(self):
-        # b = r - alpha*Ap formed inside the zero-guess sweep kernel
-        from poissbox_tpu.ops.stencil_pallas import (
-            sor_rb_zero_sweep_pallas,
-            sor_rb_zero_update_pallas,
-        )
-        n = 32
-        d = (1.0 / n,) * 3
-        r = jax.random.normal(jax.random.PRNGKey(0), (n,) * 3, jnp.float64)
-        ap = jax.random.normal(jax.random.PRNGKey(1), (n,) * 3, jnp.float64)
-        alpha = 0.41
-        b_new, x1, rr, sr = sor_rb_zero_update_pallas(r, ap, alpha, d, 1.0)
-        b0 = r - alpha * ap
-        x0 = sor_rb_zero_sweep_pallas(b0, d, 1.0)
-        np.testing.assert_allclose(np.asarray(b_new), np.asarray(b0),
-                                   rtol=1e-13, atol=1e-14)
-        np.testing.assert_allclose(np.asarray(x1), np.asarray(x0),
-                                   rtol=1e-12, atol=1e-13)
-        np.testing.assert_allclose(float(rr), float(jnp.sum(b0 * b0)),
-                                   rtol=1e-12)
-        np.testing.assert_allclose(float(sr), float(jnp.sum(b0)),
-                                   rtol=1e-8, atol=1e-10)
-
-    def test_apply_update_dots_matches_plain(self):
-        from poissbox_tpu.solvers.mg import MGConfig, make_mg_preconditioner
-        grid = Grid3D((32, 32, 32))
-        # impl='pallas' forces the fused-pre path in interpret mode off-TPU
-        M = make_mg_preconditioner(grid.n, grid.deltas, MGConfig(impl="pallas"))
-        assert getattr(M, "apply_update_dots", None) is not None
-        r = jax.random.normal(jax.random.PRNGKey(5), grid.n, jnp.float64)
-        ap = jax.random.normal(jax.random.PRNGKey(6), grid.n, jnp.float64)
-        alpha = 0.37
-        b0 = r - alpha * ap
-        v0 = M(b0)
-        v, b_new, rr, sr, rv, sv = jax.jit(M.apply_update_dots)(r, ap, alpha)
-        np.testing.assert_allclose(np.asarray(b_new), np.asarray(b0),
-                                   rtol=1e-13, atol=1e-14)
-        np.testing.assert_allclose(np.asarray(v), np.asarray(v0),
-                                   rtol=1e-12, atol=1e-15)
-        np.testing.assert_allclose(float(rr), float(jnp.sum(b0 * b0)),
-                                   rtol=1e-12)
-        np.testing.assert_allclose(float(rv), float(jnp.sum(b0 * v0)),
-                                   rtol=1e-11)
-        np.testing.assert_allclose(float(sv), float(jnp.sum(v0)),
-                                   rtol=1e-8, atol=1e-12)
-
-    def test_cg_fused_m_matches(self):
-        from poissbox_tpu.solvers.cg import cg
-        from poissbox_tpu.solvers.mg import MGConfig, make_mg_preconditioner
-        grid = Grid3D((32, 32, 32))
-        A = make_laplacian_operator(grid, impl="pallas")
-        M = make_mg_preconditioner(grid.n, grid.deltas, MGConfig(impl="pallas"))
-        x_ex = A.project(jax.random.normal(jax.random.PRNGKey(7), grid.n,
-                                           jnp.float64))
-        b = A(x_ex)
-        res = jax.jit(lambda z: cg(A, z, M=M, rtol=1e-10, max_it=60))(b)
-        M_plain = lambda z: M(z)  # strips the fusion hooks
-        res0 = jax.jit(lambda z: cg(A, z, M=M_plain, rtol=1e-10,
-                                    max_it=60))(b)
-        assert bool(res.converged)
-        assert int(res.iterations) == int(res0.iterations)
-        np.testing.assert_allclose(np.asarray(res.x), np.asarray(res0.x),
-                                   rtol=1e-8, atol=1e-11)
-
-    def test_update_dots_gating(self):
-        from poissbox_tpu.solvers.mg import MGConfig, make_mg_preconditioner
-        grid = Grid3D((32, 32, 32))
-        # jacobi smoother: no fused zero+update kernel -> hook absent
-        Mj = make_mg_preconditioner(grid.n, grid.deltas,
-                                    MGConfig(impl="pallas",
-                                             smoother="jacobi"))
-        assert getattr(Mj, "apply_update_dots", None) is None
-        # pre_smooth=0: nothing to fuse into
-        M0 = make_mg_preconditioner(grid.n, grid.deltas,
-                                    MGConfig(impl="pallas", pre_smooth=0,
-                                             post_smooth=2))
-        assert getattr(M0, "apply_update_dots", None) is None
-
-    def test_inplace_kernel_dots(self):
-        # the fused in-place kernel path (interpret mode off-TPU)
-        from poissbox_tpu.ops.stencil_inplace import _sor_rb_multi_inplace
-        from poissbox_tpu.ops.stencil_pallas import sor_rb_sweep_pallas
-        n = 32
-        u = jax.random.normal(jax.random.PRNGKey(2), (n, n, n), jnp.float64)
-        b = jax.random.normal(jax.random.PRNGKey(3), (n, n, n), jnp.float64)
-        deltas = (1.0 / n,) * 3
-        x, rv, sv = _sor_rb_multi_inplace(u, b, deltas, 1.0, False, 1,
-                                          dots=True)
-        x0 = sor_rb_sweep_pallas(u, b, deltas, 1.0, False)
-        np.testing.assert_allclose(np.asarray(x), np.asarray(x0),
-                                   rtol=1e-12, atol=1e-14)
-        np.testing.assert_allclose(float(rv), float(jnp.sum(x0 * b)),
-                                   rtol=1e-11)
-        np.testing.assert_allclose(float(sv), float(jnp.sum(x0)),
-                                   rtol=1e-8, atol=1e-10)
-
-
-class TestFusedLegTc1:
-    def test_single_coarse_plane_blocks(self):
-        # regression: tc=1 blocks (VMEM-forced at 768^3-class planes) hit
-        # zero-size concat operands in the fused V-cycle leg kernels
-        from poissbox_tpu.ops.stencil_pallas import (
-            _resid_xrestrict,
-            _xprolong_add,
-        )
-        n = 16
-        d = (1.0 / n,) * 3
-        u = jax.random.normal(jax.random.PRNGKey(0), (n, n, n), jnp.float64)
-        b = jax.random.normal(jax.random.PRNGKey(1), (n, n, n), jnp.float64)
-        np.testing.assert_allclose(
-            np.asarray(_resid_xrestrict(u, b, d, 1)),
-            np.asarray(_resid_xrestrict(u, b, d, 4)), rtol=1e-13, atol=1e-11)
-        e = jax.random.normal(jax.random.PRNGKey(2), (n // 2, n, n),
-                              jnp.float64)
-        np.testing.assert_allclose(
-            np.asarray(_xprolong_add(u, e, 1)),
-            np.asarray(_xprolong_add(u, e, 4)), rtol=1e-13, atol=1e-13)
-
-
-class TestDeferredPUpdate:
-    """cg's deferred search-direction path: p' = (v - zshift) + beta*p
-    forms inside the fused matvec kernel (pupdate_lapl_dot_pallas).
-    Measured slower than the eager pass on the 7-point stack (doubled
-    halo fetches — see ops/stencil.py), so it is NOT bound by default;
-    the capability stays correct and tested."""
-
-    def _op(self, n=16):
-        import dataclasses
-        from poissbox_tpu.ops.stencil_pallas import pupdate_lapl_dot_pallas
-        grid = Grid3D((n, n, n))
-        A = make_laplacian_operator(grid, impl="pallas")
-        deltas = grid.deltas
-        A = dataclasses.replace(
-            A, pupdate_apply_dot=lambda v, p, beta, zs:
-            pupdate_lapl_dot_pallas(v, p, beta, zs, deltas))
-        return grid, A
-
-    def test_kernel_matches_eager(self):
-        from poissbox_tpu.ops.stencil_pallas import (
-            apply_laplacian_pallas,
-            pupdate_lapl_dot_pallas,
-        )
-        n = 16
-        d = (1.0 / n,) * 3
-        v = jax.random.normal(jax.random.PRNGKey(0), (n, n, n), jnp.float64)
-        p = jax.random.normal(jax.random.PRNGKey(1), (n, n, n), jnp.float64)
-        pn, ap, pap = pupdate_lapl_dot_pallas(v, p, 0.73, 0.031, d)
-        pn0 = (v - 0.031) + 0.73 * p
-        ap0 = apply_laplacian_pallas(pn0, d)
-        np.testing.assert_allclose(np.asarray(pn), np.asarray(pn0),
-                                   rtol=1e-13, atol=1e-14)
-        np.testing.assert_allclose(np.asarray(ap), np.asarray(ap0),
-                                   rtol=1e-12, atol=1e-8)
-        np.testing.assert_allclose(float(pap), float(jnp.sum(pn0 * ap0)),
-                                   rtol=1e-11)
-
-    def test_cg_deferred_matches_eager(self):
-        from poissbox_tpu.solvers.cg import cg
-        grid, A = self._op()
-        A0 = make_laplacian_operator(grid, impl="roll")
-        x_ex = A0.project(jax.random.normal(jax.random.PRNGKey(2), grid.n,
-                                            jnp.float64))
-        b = A0(x_ex)
-        res = jax.jit(lambda bb: cg(A, bb, rtol=1e-10, max_it=400))(b)
-        res0 = jax.jit(lambda bb: cg(A0, bb, rtol=1e-10, max_it=400))(b)
-        assert bool(res.converged)
-        assert abs(int(res.iterations) - int(res0.iterations)) <= 1
-        np.testing.assert_allclose(np.asarray(res.x), np.asarray(res0.x),
-                                   rtol=1e-7, atol=1e-10)
-
-    @pytest.mark.slow
-    def test_cg_deferred_preconditioned(self):
-        from poissbox_tpu.solvers.cg import cg
-        from poissbox_tpu.solvers.mg import MGConfig, make_mg_preconditioner
-        grid, A = self._op()
-        M = make_mg_preconditioner(grid.n, grid.deltas, MGConfig())
-        x_ex = A.project(jax.random.normal(jax.random.PRNGKey(3), grid.n,
-                                           jnp.float64))
-        b = A(x_ex)
-        res = jax.jit(lambda bb: cg(A, bb, M=M, rtol=1e-10, max_it=50))(b)
-        assert bool(res.converged)
-        np.testing.assert_allclose(np.asarray(res.x), np.asarray(x_ex),
-                                   rtol=1e-6, atol=1e-9)
-
 
 class TestLiveMonitor:
-    """VERDICT r2 task 5: residual lines must appear DURING a jitted solve,
+    """Residual lines must appear DURING a jitted solve,
     not from post-hoc history rendering."""
 
     def _problem(self):

@@ -1,9 +1,8 @@
 """The scaling model is machine-checked: the analytic collective replay of
 one MG-CG iteration (utils.scaling.mgcg_iteration_model) must match the
 census of the actually-compiled while body on the virtual 8-device mesh —
-then its efficiency predictions are exercised at the BASELINE config-#5
-rungs (VERDICT r3 item 7: make the >=80% weak-scaling north star a
-falsifiable prediction instead of an unknown).
+then its efficiency arithmetic is exercised with stated inputs (an assumed
+per-iteration time and link bandwidth; neither is a measurement).
 
 Reference anchor: the width-1 halo traffic contract of DMDA
 (reference src/poissbox.f90:104-105) and the `mpirun -n 3` scaling story
@@ -15,10 +14,16 @@ import jax.numpy as jnp
 import pytest
 
 from poissbox_tpu.utils.scaling import (
-    ICI_BW,
     mgcg_iteration_model,
     predict_efficiency,
 )
+
+# Stated inputs for the prediction arithmetic (not measurements): a
+# per-iteration time of a 512^3 MG-CG iteration on one device, and a
+# one-way link bandwidth of 450 GB/s (NVLink 4 per direction, NVIDIA's
+# H100 SXM data sheet).
+T_IT_512 = 20e-3
+LINK_BW = 450e9
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs the 8-device test mesh")
@@ -88,25 +93,35 @@ def test_model_scales_with_grid():
 
 
 def test_weak_scaling_prediction_512_per_chip():
-    """BASELINE config #5's rungs as falsifiable numbers: 512^3 per chip,
-    v5e ICI, measured single-chip iteration time (BENCH_512: 27.6 ms/it).
-    The >=80% north star must hold with margin in BOTH the overlapped and
-    the no-overlap accounting at 8 and 64 chips."""
-    t_it = 27.6e-3
+    """Weak-scaling rungs at 512^3 per device on 8 and 64 devices: with the
+    stated inputs the >=80% target holds in BOTH the overlapped and the
+    no-overlap accounting."""
     for pgrid in [(2, 2, 2), (4, 4, 4)]:
         n = tuple(512 * p for p in pgrid)
-        pred = predict_efficiency(n, pgrid, t_it, chip="v5e")
-        assert pred.comm_s < 2e-3, pred          # ~1 MB faces over 45 GB/s
+        pred = predict_efficiency(n, pgrid, T_IT_512, LINK_BW)
+        assert pred.comm_s < 1e-3, pred          # ~MB faces over 450 GB/s
         assert pred.efficiency_overlapped >= 0.95, pred
         assert pred.efficiency_serial >= 0.80, pred
 
 
 def test_strong_scaling_prediction_512_over_8():
-    # strong: 512^3 split over 8 chips; compute scales by the block ratio
-    t_it = 27.6e-3 / 8
-    pred = predict_efficiency((512, 512, 512), (2, 2, 2), t_it, chip="v5e")
+    # strong: 512^3 split over 8 devices; compute scales by the block ratio
+    pred = predict_efficiency((512, 512, 512), (2, 2, 2), T_IT_512 / 8,
+                              LINK_BW)
     assert pred.efficiency_overlapped >= 0.85, pred
 
 
-def test_ici_table_sane():
-    assert ICI_BW["v5e"] == 4.5e10 and ICI_BW["v5p"] > ICI_BW["v5e"]
+@pytest.mark.parametrize("link_bw", [45e9, 450e9, 900e9])
+def test_prediction_arithmetic(link_bw):
+    """comm_s is the largest per-axis byte volume over the link bandwidth;
+    the efficiencies follow from it exactly."""
+    n, pgrid = (256, 256, 256), (2, 2, 1)
+    m = mgcg_iteration_model(n, pgrid)
+    t = 5e-3
+    pred = predict_efficiency(n, pgrid, t, link_bw, model=m)
+    assert pred.comm_s == pytest.approx(max(m.axis_bytes) / link_bw)
+    assert pred.gather_s == pytest.approx(m.gather_bytes / link_bw)
+    assert pred.efficiency_serial == pytest.approx(
+        t / (t + pred.comm_s + pred.gather_s))
+    assert pred.efficiency_overlapped == pytest.approx(
+        t / (max(t, pred.comm_s) + pred.gather_s))

@@ -2,7 +2,7 @@
 
 Ports of reference tests/tridiag/{test_tdma_sweeps,test_tdma,
 test_tdma_periodic}.f90 plus the manufactured-solution fixture
-(test_tdma_utils.f90), extended with the TPU-specific concerns: both
+(test_tdma_utils.f90), extended with the data-parallel concerns: both
 execution methods (sequential scan and parallel associative scan) and
 batched RHS along arbitrary axes.
 """
@@ -105,7 +105,7 @@ def test_bwd_sweep_solves_upper_bidiagonal(rng):
 @pytest.mark.parametrize("axis", [0, 1, 2])
 def test_batched_solve_any_axis(rng, method, axis):
     """Batched RHS: solving along any axis of a 3-D array matches looped
-    1-D solves (the TPU replacement for the reference's serial pencil
+    1-D solves (the batched replacement for the reference's serial pencil
     loops, reference src/compact_schemes.f90:60-66)."""
     n, b1, b2 = 32, 5, 7
     a, b, c, x, d = make_system(rng, n, periodic=True)

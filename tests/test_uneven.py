@@ -3,7 +3,7 @@
 The reference's canonical parallel demo is 64^3 on 3 MPI ranks with the
 90112/86016/86016 DoF split (reference README.md:25-33); PETSc's DMDA
 handles any rank count via PETSC_DECIDE (reference src/poissbox.f90:191-200).
-These tests verify the TPU-native equivalent (`parallel.uneven` padded
+These tests verify the equivalent here (`parallel.uneven` padded
 layout) end-to-end on the virtual CPU mesh: execution ownership matches the
 DMDA split, the masked operators match the unsharded ones exactly, and the
 full MG-CG solve converges with the same iteration count as unsharded.
